@@ -1,8 +1,8 @@
-"""TPU-native bundle-adjustment / SfM engine.
+"""Bundle-adjustment / SfM engine on JAX/XLA (one GPU or a mesh of them).
 
-A brand-new JAX/XLA/Pallas framework with the capability surface of the
-reference Julia package `CelestineAngla/BundleAdjustment.jl` (mounted at
-/root/reference), re-architected TPU-first rather than ported:
+A JAX/XLA framework with the capability surface of the reference Julia
+package `CelestineAngla/BundleAdjustment.jl` (mounted at /root/reference),
+re-architected rather than ported:
 
 - BAL data pipeline (bz2 text reader, synthetic generator, covisibility
   partitioner)                       -> :mod:`bundleadjustment_jl_tpu.io`
@@ -22,8 +22,7 @@ Reference parity map (file:line cites point into /root/reference):
 - `src/lm.jl`, `src/LevenbergMarquardt.jl`, `src/lm_givens.jl` -> solver/lm.py
 - `src/qr_aux.jl`, `src/ldl_aux.jl` (SPQR/LDLT)
       -> ops/schur.py + ops/pcg.py (Schur complement + PCG replace sparse
-         factorizations; see SURVEY.md §2.2); ops/pallas_schur.py fuses
-         each matvec direction into one streaming Pallas kernel pass
+         factorizations; see SURVEY.md §2.2)
 - `src/lma_aux.jl` (equilibration -> block-Jacobi preconditioning in
   ops/pcg.py; COO SpMV -> ops/blockmul.py; mixed precision shims ->
   benchmark/precision.py + solver facto_dtype)

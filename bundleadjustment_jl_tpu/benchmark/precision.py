@@ -1,6 +1,6 @@
 """Mixed-precision solves: cascades and within-solve low-precision storage.
 
-TPU-native heir of the reference's precision experiments
+The JAX counterpart of the reference's precision experiments
 (`/root/reference/src/diffprecsions.jl:17-50`,
 `src/benchmark_diffprec.jl:38-94`). Two distinct modes, matching the
 reference's two:
@@ -19,10 +19,10 @@ reference's two:
    with low-type L storage `ldl_aux.jl:272-282`): the LM loop — residuals,
    gradients, acceptance tests, tolerances — runs in the working dtype
    while the factorization operands (the per-observation ``W`` blocks and
-   diagonal Hessian blocks, the bulk of per-iteration HBM traffic) are
-   stored in ``facto_dtype``. On TPU this is
+   diagonal Hessian blocks, the bulk of per-iteration device-memory
+   traffic) are stored in ``facto_dtype``. Here this is
    ``levenberg_marquardt_jit(..., facto_dtype=bfloat16)``: bf16 storage,
-   f32 MXU accumulation, ~half the bytes through the PCG matvec.
+   f32 accumulation, ~half the bytes through the PCG matvec.
 """
 
 from __future__ import annotations

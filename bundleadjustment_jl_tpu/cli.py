@@ -2,7 +2,7 @@
 
 Parity with the reference CLI `julia src/solve_ba.jl <file> <QR|LDL>
 <AMD|Metis> <None|A|J>` (`/root/reference/src/solve_ba.jl:4-27`) and the
-scripted `src/main.jl`, re-keyed to the TPU-native option space: the
+scripted `src/main.jl`, re-keyed to this package's option space: the
 QR/LDL + ordering + normalization axes collapse into ``--solver``
 (``pcg`` = matrix-free Schur+PCG, ``dense`` = dense Schur Cholesky; point
 elimination *is* the ordering, block-Jacobi *is* the equilibration — see
@@ -38,7 +38,7 @@ def _parse_synthetic(spec: str) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bundleadjustment_jl_tpu",
-        description="TPU-native bundle adjustment (BAL problems)")
+        description="Bundle adjustment of BAL problems on an accelerator")
     p.add_argument("problem",
                    help="BAL .txt/.txt.bz2 path or 'synthetic:k=v,...'")
     p.add_argument("--solver", choices=["pcg", "dense", "cgls", "power"],
@@ -50,9 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="jit",
                    help="host-stepped loop (rich logging), one-XLA-program, "
                         "the chunked jit driver (max-time + checkpoint "
-                        "support at jit speed), or the multi-chip "
-                        "fused-kernel shard_map driver (use with --mesh N; "
-                        "implies --pallas)")
+                        "support at jit speed), or the multi-device "
+                        "shard_map driver (use with --mesh N)")
     p.add_argument("--chunk-iters", type=int, default=25,
                    help="iterations per compiled segment (chunked driver)")
     p.add_argument("--checkpoint-dir", default=None,
@@ -64,9 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "full-precision LM (the reference's facto_type, "
                         "lm.jl:99; jit/chunked drivers)")
     p.add_argument("--dtype", choices=["f32", "f64", "bf16"], default=None,
-                   help="working precision (default: f64 on cpu, f32 on tpu)")
+                   help="working precision (default: f64 on cpu, f32 on "
+                        "an accelerator)")
     p.add_argument("--platform", default=None,
-                   help="jax platform override (cpu, tpu, ...)")
+                   help="jax platform to select explicitly (e.g. cpu); by "
+                        "default JAX's own choice")
     p.add_argument("--max-iters", type=int, default=200)
     p.add_argument("--max-time", type=float, default=3600.0,
                    help="host driver only")
@@ -80,14 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard observations over the first N devices "
                         "(GSPMD; with --driver spmd: point-aligned "
                         "shard_map layout)")
-    p.add_argument("--pallas", action="store_true",
-                   help="enable the fused Pallas kernels "
-                        "(ops/pallas_schur.py, ops/pallas_linearize.py)")
-    p.add_argument("--cam-scatter", action="store_true",
-                   help="camera-scatter kernel mode (with --pallas): "
-                        "point-sorted streams + persistent VMEM camera "
-                        "accumulators; one W pass per LM stage "
-                        "(docs/architecture.md; also BA_CAM_SCATTER=1)")
     p.add_argument("--multihost", action="store_true",
                    help="initialize jax.distributed (multi-host SPMD: the "
                         "mesh spans every process's devices; set the "
@@ -105,17 +98,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     import jax
+
+    from bundleadjustment_jl_tpu.utils.cache import configure_compile_cache
+    configure_compile_cache()
     if args.multihost:
-        # Multi-host SPMD (DCN across hosts, ICI within a slice): all
-        # processes run this same CLI; collectives are placed by GSPMD
-        # exactly as in the single-host case (SURVEY.md §2.3).
+        # Multi-host SPMD: all processes run this same CLI; collectives
+        # are placed by GSPMD exactly as in the single-host case
+        # (SURVEY.md §2.3).
         jax.distributed.initialize()
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     backend = jax.default_backend()
-    # spmd driver = fused kminor kernels (f32-accumulating, no f64 path).
-    dtype_name = args.dtype or (
-        "f32" if args.driver == "spmd" or backend != "cpu" else "f64")
+    dtype_name = args.dtype or ("f64" if backend == "cpu" else "f32")
     if dtype_name == "f64":
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -138,13 +132,6 @@ def main(argv=None) -> int:
               f"nvar={problem.nvar} nequ={problem.nequ} "
               f"[{backend}/{dtype_name}, load {load_s:.2f}s]")
 
-    if args.pallas or args.driver == "spmd":
-        from bundleadjustment_jl_tpu.ops import pallas_schur
-        pallas_schur.set_mode(True)
-        if args.cam_scatter:
-            pallas_schur.CAM_SCATTER = True
-        if backend != "tpu":
-            pallas_schur.INTERPRET = True   # correct, not fast, off-TPU
     mesh = None
     if args.mesh and args.driver != "spmd":
         from bundleadjustment_jl_tpu.parallel.mesh import (
@@ -166,6 +153,7 @@ def main(argv=None) -> int:
         res = levenberg_marquardt(problem, opts)
         status, obj = res.status, res.objective
         iters, dual = res.iterations, res.dual_feas
+        cg_matvecs = sum(h.get("cg_iters", 0) for h in res.history)
         cams, points = res.cams, res.points
     else:
         from bundleadjustment_jl_tpu.solver.lm_jit import (
@@ -186,13 +174,13 @@ def main(argv=None) -> int:
         elif args.driver == "spmd":
             from bundleadjustment_jl_tpu.parallel.mesh import make_mesh
             from bundleadjustment_jl_tpu.parallel.spmd import (
-                shard_problem_kminor)
+                shard_problem_spmd)
             from bundleadjustment_jl_tpu.solver.lm_spmd import (
                 levenberg_marquardt_spmd, levenberg_marquardt_spmd_chunked)
             ndev = min(args.mesh or len(jax.devices()),
                        len(jax.devices()))
             mesh = make_mesh(ndev)
-            sp = shard_problem_kminor(problem, ndev, mesh=mesh)
+            sp = shard_problem_spmd(problem, ndev, mesh=mesh)
             for k in ("use_dense", "use_cgls", "use_power"):
                 if kw.pop(k):
                     raise SystemExit("--driver spmd supports --solver pcg")
@@ -210,6 +198,7 @@ def main(argv=None) -> int:
         status = STATUS_NAMES[int(res.status)]
         obj, iters = float(res.objective), int(res.iterations)
         dual = float(res.dual_feas)
+        cg_matvecs = int(jax.numpy.sum(res.hist_cg[:iters]))
         cams, points = res.cams, res.points
         if args.verbose:
             import numpy as np
@@ -227,7 +216,8 @@ def main(argv=None) -> int:
     rmse = (2.0 * obj / max(problem.nequ, 1)) ** 0.5
     stats = {
         "problem": problem.name, "status": status, "objective": obj,
-        "rmse_px": rmse, "iterations": iters, "elapsed_s": elapsed,
+        "rmse_px": rmse, "iterations": iters, "cg_matvecs": cg_matvecs,
+        "elapsed_s": elapsed,
         "dual_feas": dual, "solver": args.solver, "driver": args.driver,
         "dtype": dtype_name, "backend": backend,
     }

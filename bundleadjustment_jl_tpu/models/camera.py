@@ -20,11 +20,9 @@ are AD-safe at ``theta -> 0`` via the standard double-`where` trick, so
 function is scalar-per-observation and meant to be `vmap`ed / `jit`ed.
 
 Inner products are written as ``sum(a * b)`` rather than ``jnp.dot``: under
-`vmap` a 3-vector dot becomes a batched (N,3)x(N,3) dot_general, which the
-TPU backend (default matmul precision) lowers by converting the operands to
-bf16 and materializing them tile-padded — gigabytes of transient HBM at
-Venice scale and a silent precision drop. Multiply+reduce stays a fused
-f32 elementwise op.
+`vmap` a 3-vector dot becomes a batched (N,3)x(N,3) dot_general at
+default matmul precision (TF32 on the GPU) — a silent precision drop.
+Multiply+reduce stays a fused f32 elementwise op.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Bundle-adjustment problem container.
 
-TPU-first data layout: structure-of-arrays with **static, padded shapes** so
+Accelerator data layout: structure-of-arrays with **static, padded shapes** so
 a single compiled XLA program serves the whole solve.
 
 - ``cams``    (ncams, 9)  camera params ``(rx,ry,rz,tx,ty,tz,k1,k2,f)``
@@ -53,7 +53,7 @@ class BAProblem:
     # (None = rows are already point-sorted, the `from_arrays` layout);
     # `cam_perm` (nobs_pad,) permutes rows into cam-sorted order delimited
     # by `cam_starts` (ncams+1,). Enables scatter-free segment sums
-    # (`ops/segsum.py`) and the Pallas tile-reduction kernels.
+    # (`ops/segsum.py`) and the point-aligned spmd shards.
     pnt_starts: jnp.ndarray | None = None
     cam_perm: jnp.ndarray | None = None
     cam_starts: jnp.ndarray | None = None

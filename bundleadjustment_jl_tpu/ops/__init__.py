@@ -1,5 +1,5 @@
 """Compute ops: residuals, Jacobian blocks, normal-equation assembly,
-Schur-complement reduction, PCG — the TPU-native replacement of the
+Schur-complement reduction, PCG — the replacement of the
 reference's sparse-matrix layer (`src/qr_aux.jl`, `src/ldl_aux.jl`,
 `src/lma_aux.jl`)."""
 
@@ -16,5 +16,3 @@ from bundleadjustment_jl_tpu.ops.pcg import (  # noqa: F401
     power_series)
 from bundleadjustment_jl_tpu.ops.cgls import (  # noqa: F401
     cgls_solve, CGLSResult, j_matvec, jt_matvec)
-from bundleadjustment_jl_tpu.ops.pallas_schur import (  # noqa: F401
-    wtv_point_reduce, wt_cam_reduce)

@@ -1,16 +1,23 @@
-"""Padding-free batched block products.
+"""Batched block products over the observation axis.
 
-XLA TPU lays out the operands of batched-small dot_generals (einsums like
-``"kab,kb->ka"`` over N observations of 9x3 blocks) with the block dims in
-the minor tile positions — T(8,128) over (9, 3) — a measured 75.9x memory
-expansion that OOMs Venice-scale problems and roughly doubles runtime at
-every size (docs/performance.md).
+Two forms of each contraction, chosen by problem size (``SMALL_N``):
 
-This module expresses the same contractions with only
-(a) 2-D elementwise multiplies on (N, 27)/(N, 18)/(N, 6) arrays (last dim
-    pads at most 128/27 = 4.7x, and only transiently), and
-(b) matmuls against tiny CONSTANT 0/1 reduction matrices ((27, 9) etc.) —
-    ordinary MXU matmuls with well-laid-out operands.
+(a) batched einsums over the (N, 9, 3) / (N, 2, 9) / (N, 2, 3) blocks;
+(b) 2-D elementwise multiplies on the flat (N, 27)/(N, 18)/(N, 6) arrays
+    followed by matmuls against tiny CONSTANT 0/1 reduction matrices
+    ((27, 9) etc.).
+
+Form (b) was written for a tiled device layout that padded the small
+block dims of form (a); the switch point was chosen before the H100
+port and is not measured on the H100 (ROADMAP D2).
+
+Every product runs at ``Precision.HIGHEST``: these are the CG matvec,
+the reduced right-hand side and the Hessian blocks, and TF32 (the card's
+default for f32 products, ~1e-3 relative) would put its rounding into
+every Schur product and stall CG far above its tolerance. With a 0/1
+reduction matrix, HIGHEST makes form (b) an exact f32 group-sum. A
+low-precision (bf16/f16) W promotes to f32 before the product, so it
+accumulates in f32 as well.
 
 Flat-index conventions (row-major):
     W  (N, 9, 3) -> (N, 27), j = 3 a + b
@@ -20,9 +27,13 @@ Flat-index conventions (row-major):
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def _group_sum(cols: int, groups: int, by_quotient: bool) -> np.ndarray:
@@ -45,18 +56,13 @@ _B6_B = _group_sum(6, 3, by_quotient=False)     # sum over i -> index b
 
 
 def _mm(prod: jnp.ndarray, B: np.ndarray) -> jnp.ndarray:
-    # precision=HIGHEST: TPU f32 matmuls otherwise round inputs to bf16,
-    # which poisons the CG matvec (measured: 6x more CG iterations and NaN
-    # steps). With a 0/1 reduction matrix, HIGHEST makes this an exact
-    # f32 group-sum.
     return jnp.dot(prod, jnp.asarray(B, prod.dtype),
                    precision=jax.lax.Precision.HIGHEST)
 
 
-# Below this many observations the padded batched-dot layouts fit HBM
-# trivially and the einsum path is ~1.5x faster (fewer materialized
-# operands); above it the padding dominates memory and the elementwise +
-# constant-matmul path wins. Static per compilation (shapes are static).
+# Below this many observations the einsum form (a) runs, above it the
+# elementwise + constant-matmul form (b). Static per compilation (shapes
+# are static). Chosen before the H100 port; not measured on the H100.
 SMALL_N = 1 << 18
 
 
@@ -67,32 +73,12 @@ _B9_A = _group_sum(9, 3, by_quotient=True)      # sum over b -> index a
 
 def m33_dot(M9: jnp.ndarray, t_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("pab,pb->pa", M, t)`` for flat (P, 9) 3x3 blocks
-    (row-major j = 3a + b), P-wide along points.
-
-    The einsum form materializes the (P, 3, 3) operand tile-padded
-    ({1,2,0:T(4,128)} — measured 57x at BAL point counts) and, at default
-    TPU matmul precision, in bf16; this stays flat-2-D and exact."""
+    (row-major j = 3a + b), P-wide along points."""
     n = M9.size // 9
     if n <= SMALL_N:
-        return jnp.einsum("pab,pb->pa", M9.reshape(-1, 3, 3), t_rows,
-                          precision=jax.lax.Precision.HIGHEST)
+        return _einsum("pab,pb->pa", M9.reshape(-1, 3, 3), t_rows)
     M9 = M9.reshape(-1, 9)
     return _mm(M9 * jnp.tile(t_rows, (1, 3)), _B9_A)
-
-
-def m33_dot_kminor(M9_f: jnp.ndarray, t_f: jnp.ndarray) -> jnp.ndarray:
-    """``Hpp_inv @ t`` per point, emitted K-MINOR: (3, npnts), row a =
-    sum_b M[3a+b] t[b], built from STRIDED slices of the flat inputs.
-
-    Exists for huge-n sites that feed a k-minor Pallas operand: the
-    row-major (npnts, 3) product tile-pads 3 -> 128 lanes when
-    materialized as an internal buffer (2.12 GB at Final-13682,
-    logs/r4/final_capacity_r4_relin2.log allocation #2 — the
-    ``m33_dot(...).T`` handoff into the camera-direction reduce).
-    Strided flat slices and the (3, n) stack stay packed."""
-    rows = [sum(M9_f[(3 * a + b)::9] * t_f[b::3] for b in range(3))
-            for a in range(3)]
-    return jnp.stack(rows, axis=0)
 
 
 # --- W (N,27) block products ------------------------------------------------
@@ -101,7 +87,7 @@ def w_dot_b(W_f: jnp.ndarray, t_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("kab,kb->ka", W, t)``: (N,27) x (N,3) -> (N,9)."""
     n = W_f.size // 27
     if n <= SMALL_N:
-        return jnp.einsum("kab,kb->ka", W_f.reshape(-1, 9, 3), t_rows)
+        return _einsum("kab,kb->ka", W_f.reshape(-1, 9, 3), t_rows)
     W27 = W_f.reshape(-1, 27)
     return _mm(W27 * jnp.tile(t_rows, (1, 9)), _B27_A)
 
@@ -110,7 +96,7 @@ def wT_dot_a(W_f: jnp.ndarray, v_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("kab,ka->kb", W, v)``: (N,27) x (N,9) -> (N,3)."""
     n = W_f.size // 27
     if n <= SMALL_N:
-        return jnp.einsum("kab,ka->kb", W_f.reshape(-1, 9, 3), v_rows)
+        return _einsum("kab,ka->kb", W_f.reshape(-1, 9, 3), v_rows)
     W27 = W_f.reshape(-1, 27)
     return _mm(W27 * jnp.repeat(v_rows, 3, axis=1), _B27_B)
 
@@ -121,7 +107,7 @@ def jc_dot(Jc_f: jnp.ndarray, dc_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("kia,ka->ki", Jc, dc)``: (N,18) x (N,9) -> (N,2)."""
     n = Jc_f.size // 18
     if n <= SMALL_N:
-        return jnp.einsum("kia,ka->ki", Jc_f.reshape(-1, 2, 9), dc_rows)
+        return _einsum("kia,ka->ki", Jc_f.reshape(-1, 2, 9), dc_rows)
     Jc18 = Jc_f.reshape(-1, 18)
     return _mm(Jc18 * jnp.tile(dc_rows, (1, 2)), _B18_I)
 
@@ -130,7 +116,7 @@ def jcT_dot(Jc_f: jnp.ndarray, r_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("kia,ki->ka", Jc, r)``: (N,18) x (N,2) -> (N,9)."""
     n = Jc_f.size // 18
     if n <= SMALL_N:
-        return jnp.einsum("kia,ki->ka", Jc_f.reshape(-1, 2, 9), r_rows)
+        return _einsum("kia,ki->ka", Jc_f.reshape(-1, 2, 9), r_rows)
     Jc18 = Jc_f.reshape(-1, 18)
     return _mm(Jc18 * jnp.repeat(r_rows, 9, axis=1), _B18_A)
 
@@ -139,7 +125,7 @@ def jp_dot(Jp_f: jnp.ndarray, dp_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("kib,kb->ki", Jp, dp)``: (N,6) x (N,3) -> (N,2)."""
     n = Jp_f.size // 6
     if n <= SMALL_N:
-        return jnp.einsum("kib,kb->ki", Jp_f.reshape(-1, 2, 3), dp_rows)
+        return _einsum("kib,kb->ki", Jp_f.reshape(-1, 2, 3), dp_rows)
     Jp6 = Jp_f.reshape(-1, 6)
     return _mm(Jp6 * jnp.tile(dp_rows, (1, 2)), _B6_I)
 
@@ -148,7 +134,7 @@ def jpT_dot(Jp_f: jnp.ndarray, r_rows: jnp.ndarray) -> jnp.ndarray:
     """``einsum("kib,ki->kb", Jp, r)``: (N,6) x (N,2) -> (N,3)."""
     n = Jp_f.size // 6
     if n <= SMALL_N:
-        return jnp.einsum("kib,ki->kb", Jp_f.reshape(-1, 2, 3), r_rows)
+        return _einsum("kib,ki->kb", Jp_f.reshape(-1, 2, 3), r_rows)
     Jp6 = Jp_f.reshape(-1, 6)
     return _mm(Jp6 * jnp.repeat(r_rows, 3, axis=1), _B6_B)
 
@@ -165,7 +151,7 @@ def jjT_outer(Ja_f: jnp.ndarray, da: int, Jb_f: jnp.ndarray,
     """
     n = Ja_f.size // (2 * da)
     if n <= SMALL_N:
-        out = jnp.einsum("kia,kib->kab", Ja_f.reshape(-1, 2, da),
+        out = _einsum("kia,kib->kab", Ja_f.reshape(-1, 2, da),
                          Jb_f.reshape(-1, 2, db))
         return out.reshape(-1, da * db)
     Ja2 = Ja_f.reshape(-1, 2 * da)

@@ -1,6 +1,6 @@
 """Damped CGLS on the full (camera + point) variable space.
 
-The TPU-native heir of the reference's QR branch (`src/qr_aux.jl` — SPQR of
+The heir of the reference's QR branch (`src/qr_aux.jl` — SPQR of
 the damped stacked matrix ``[J; sqrt(lambda) I]``, and the Givens-update
 experiment `src/lm_givens.jl`): solve
 
@@ -72,14 +72,14 @@ def cgls_solve(problem: BAProblem, blocks: GNBlocks, lam,
 
     def precond(vc, vp):
         return (block_jacobi_apply(Mc_inv, vc),
-                jnp.einsum("pab,pb->pa", Pp, vp))
+                jnp.einsum("pab,pb->pa", Pp, vp,
+                           precision=jax.lax.Precision.HIGHEST))
 
     def dot(ac, ap, bc, bp):
         return jnp.sum(ac * bc) + jnp.sum(ap * bp)
 
     # x0 = 0; s1 = b = -r ; s2 = -sqrt(lam) x = 0
-    # All N-major carries travel FLAT (see GNBlocks: TPU tile-pads small
-    # minor dims of while-carried buffers).
+    # All N-major carries travel FLAT (see GNBlocks).
     s1 = -blocks.r
     vc, vp = jt_matvec(problem, blocks, s1)
     zc, zp = precond(vc, vp)

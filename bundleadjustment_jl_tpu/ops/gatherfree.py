@@ -1,19 +1,17 @@
-"""Gather-free row indexing for TPU.
+"""Gather-free row indexing.
 
-Measured on the TPU backend (`scripts/tpu_roofline.py`): XLA row gathers
-run ~2.7M rows/s (~0.2-0.5 GB/s effective) — orders of magnitude below the
-~228 GB/s the same chip sustains on fused elementwise+matmul streams — and
-the LM inner loop performs several gathers per PCG matvec. The two
-formulations here express the same row-indexing with fast primitives:
+Written for an accelerator whose row gathers were slow; the LM inner loop
+performs several gathers per PCG matvec. Chosen before the H100 port and
+not measured on the H100, where gathers are native (ROADMAP D2); the
+default ``MODE`` is "native" indexing. The two formulations here express
+the same row-indexing without per-row indexing:
 
-- :func:`take_rows_onehot` — ``out = onehot(idx) @ table`` on the MXU,
+- :func:`take_rows_onehot` — ``out = onehot(idx) @ table`` as a matmul,
   chunked through a `lax.map` so the transient one-hot stays a few MB.
   EXACT: the one-hot is 0/1 in the working dtype and the dot runs at
   ``Precision.HIGHEST`` with exactly one nonzero term per output row.
   Economical when the table is small (camera-indexed quantities: the
-  cost is ~4*ncams bytes/row of one-hot traffic, which at measured
-  stream rates beats the serialized gather for any ncams in the BAL
-  range).
+  cost is ~4*ncams bytes/row of one-hot traffic).
 - :func:`expand_sorted` — for NONDECREASING index vectors (the
   point-sorted observation layout invariant): scatter the per-row deltas
   ``t[p] - t[p-1]`` at segment starts and prefix-sum over the observation
@@ -49,7 +47,7 @@ def set_mode(mode: str) -> None:
 
 def take_rows_onehot(table: jnp.ndarray, idx: jnp.ndarray,
                      chunk: int = None) -> jnp.ndarray:
-    """``table[idx]`` as chunked one-hot MXU matmuls (exact)."""
+    """``table[idx]`` as chunked one-hot matmuls (exact)."""
     chunk = ONEHOT_CHUNK if chunk is None else chunk
     M, d = table.shape
     n = idx.shape[0]

@@ -1,6 +1,6 @@
 """Batched analytic Jacobian blocks of the BAL reprojection residual.
 
-TPU-native heir of the reference's hand-coded Jacobian chain
+Heir of the reference's hand-coded Jacobian chain
 (`/root/reference/src/JacobianByHand.jl:27-101` — ``JP1!``/``JP2!``/``JP3!``)
 and its per-observation 2x12 product ``JP3(2x5) @ JP2(5x6) @ JP1(6x12)``
 (`src/BALNLPModels.jl:161-206`, ``jac_coord!``). Instead of scattering 24
@@ -11,7 +11,7 @@ block structure as two dense batched arrays:
     Jp  (nobs_pad, 2, 3)  d residual / d point coords
 
 which downstream ops (`ops/normal.py`, `ops/schur.py`) consume directly as
-batched einsums on the MXU/VPU — no sparse scatter, no COO indices.
+batched einsums — no sparse scatter, no COO indices.
 
 All stages are closed-form (chain rule through P1 = R(r)X + t,
 P2 = -P1[:2]/P1[3], proj = f*rho(P2)*P2) with an AD-safe theta->0 branch
@@ -25,6 +25,7 @@ call, no Python loops, static shapes (padded rows are zero-weighted).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
 import jax
@@ -32,6 +33,12 @@ import jax.numpy as jnp
 
 from bundleadjustment_jl_tpu.models.camera import project
 from bundleadjustment_jl_tpu.models.problem import BAProblem
+
+# Every batched 3x3 / 2x3 product of the chain runs at full f32: in TF32
+# (the card's default for f32 products) the Jacobian blocks would carry
+# ~1e-3 relative error into H = J'J, the gradient and the CG matvec,
+# which is not acceptable for the Gauss-Newton step.
+_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 # Same guard as models.camera: below this squared rotation angle use the
 # 2nd-order Taylor forms (exact to ~eps there, AD-safe at exactly 0).
@@ -91,22 +98,22 @@ def _rotation_and_dr(r: jnp.ndarray, X: jnp.ndarray):
     D_big = (
         -s * _outer(X, k)                                   # d(cos t X)
         + c * _outer(kxX, k)                                # d(sin t) (k x X)
-        - s * jnp.einsum("nab,nbc->nac", _hat(X), P)        # sin t d(k x X)/dk
+        - s * _einsum("nab,nbc->nac", _hat(X), P)        # sin t d(k x X)/dk
         + s * kdX[:, None, None] * _outer(k, k)             # d((1-cos t))(k.X)k
-        + (1.0 - c) * jnp.einsum(
+        + (1.0 - c) * _einsum(
             "nab,nbc->nac", _outer(k, X) + kdX[:, None, None] * eye, P)
     )
 
     # --- theta ~ 0: RX ~ X + r x X + 0.5 r x (r x X) -----------------------
     rxX = jnp.cross(r, X)
     RX_small = X + rxX + 0.5 * jnp.cross(r, rxX)
-    R_small = eye + _hat(r) + 0.5 * jnp.einsum("nab,nbc->nac", _hat(r), _hat(r))
+    R_small = eye + _hat(r) + 0.5 * _einsum("nab,nbc->nac", _hat(r), _hat(r))
     D_small = -_hat(X) - 0.5 * (
-        _hat(rxX) + jnp.einsum("nab,nbc->nac", _hat(r), _hat(X)))
+        _hat(rxX) + _einsum("nab,nbc->nac", _hat(r), _hat(X)))
 
     sel = safe[:, None, None]
     RX = jnp.where(safe[:, None],
-                   jnp.einsum("nab,nb->na", R_big, X), RX_small)
+                   _einsum("nab,nb->na", R_big, X), RX_small)
     R = jnp.where(sel, R_big, R_small)
     D = jnp.where(sel, D_big, D_small)
     return RX, R, D
@@ -181,9 +188,9 @@ def rj_gathered(c, X, pt2d, w):
         rho[:, None] * p2,
     ], axis=-1)
 
-    BA_ = jnp.einsum("nij,njk->nik", B, A)                  # (N,2,3)
-    Jp = jnp.einsum("nij,njk->nik", BA_, R)                 # (N,2,3)
-    Jr = jnp.einsum("nij,njk->nik", BA_, D)                 # (N,2,3) d/dr
+    BA_ = _einsum("nij,njk->nik", B, A)                  # (N,2,3)
+    Jp = _einsum("nij,njk->nik", BA_, R)                 # (N,2,3)
+    Jr = _einsum("nij,njk->nik", BA_, D)                 # (N,2,3) d/dr
     Jc = jnp.concatenate([Jr, BA_, J_dist], axis=-1)        # (N,2,9)
 
     res = proj - pt2d

@@ -3,7 +3,7 @@
 The reference factors the sparse augmented system
 ``K = [[I J];[J' -lambda I]]`` with a custom LDL^T
 (`/root/reference/src/ldl_aux.jl`) or SPQR (`src/qr_aux.jl`), relying on
-AMD/METIS orderings to contain fill. The TPU-native formulation exploits the
+AMD/METIS orderings to contain fill. This formulation exploits the
 *block* structure of bundle adjustment instead (SURVEY.md §2.2): the
 Gauss-Newton matrix of ``J = [Jc | Jp]`` is
 
@@ -35,7 +35,7 @@ from bundleadjustment_jl_tpu.ops.segsum import (
 
 def seg_by_pnt(problem: BAProblem, values: jnp.ndarray) -> jnp.ndarray:
     """Per-observation values -> per-point sums (scan path only when
-    segsum.SORTED_MODE is enabled; see the measured verdict there)."""
+    segsum.SORTED_MODE is enabled)."""
     from bundleadjustment_jl_tpu.ops import segsum
     if segsum.SORTED_MODE and problem.pnt_starts is not None:
         if problem.pnt_perm is not None:
@@ -56,11 +56,10 @@ def seg_by_cam(problem: BAProblem, values: jnp.ndarray) -> jnp.ndarray:
 class GNBlocks(NamedTuple):
     """Damped Gauss-Newton system in block form (all batched-dense).
 
-    Storage is FLAT (1-D) per array: TPU XLA tile-pads the minor dims of
-    persistent N-major arrays with tiny trailing dims — measured 75.9x
-    expansion for a while-carried f32[N,9,3] ({2,1,0:T(8,128)} layout) —
-    while 1-D buffers stay packed. The shaped views (``r``, ``Jc``, ``Jp``,
-    ``W``, ...) are zero-cost reshapes fused into consumers.
+    Storage is FLAT (1-D) per array; the shaped views (``r``, ``Jc``,
+    ``Jp``, ``W``, ...) are zero-cost reshapes fused into consumers. The
+    flat carries were chosen for a tiled device layout before the H100
+    port; not measured on the H100 (ROADMAP D2).
 
     ``r_f``/``Jc_f``/``Jp_f`` are ``None`` when assembled with
     ``with_jr=False`` (the hot-solver configuration): the LM step needs only
@@ -77,12 +76,6 @@ class GNBlocks(NamedTuple):
     r_f: jnp.ndarray | None = None   # flat (nobs_pad*2,) weighted residuals
     Jc_f: jnp.ndarray | None = None  # flat (nobs_pad*18,)
     Jp_f: jnp.ndarray | None = None  # flat (nobs_pad*6,)
-    # k-minor W operands (kminor=True assembly; then W_f is None): the
-    # (32, nobs_pad) point-sorted / camera-sorted layouts the fused Pallas
-    # kernels stream. Lambda-independent — carried across lambda changes
-    # so rejected LM iterations never rebuild/re-permute W.
-    W_t: jnp.ndarray | None = None
-    W_cam_t: jnp.ndarray | None = None
     # Range-equilibration scale for low-precision W storage (the heir of
     # the reference's `normalize_F16!` global range scale,
     # `/root/reference/src/lma_aux.jl:27-52` wired at `lm.jl:165-169`):
@@ -137,12 +130,10 @@ class GNBlocks(NamedTuple):
 
 
 # Streaming-chunk rows for lax.scan-based assembly/diag at large nobs.
-# Each scan step is a serialized device dispatch, so steps = n/CHUNK_ROWS
-# bounds throughput; each step materializes ~8 KB/obs of linearization
-# temps, so CHUNK_ROWS bounds memory (Venice-scale full width OOMs HBM,
-# measured at 1.25M obs). 2^16 = ~70 steps at Venice / ~21 at
-# Dubrovnik-356 with ~0.5 GB of temps per step. Never go near 512:
-# thousands of scan steps crash the experimental TPU runtime (measured).
+# Each step materializes ~8 KB/obs of linearization temps, so CHUNK_ROWS
+# bounds memory; steps = n/CHUNK_ROWS bounds the loop's serial depth.
+# 2^16 = ~21 steps at Dubrovnik-356 with ~0.5 GB of temps per step.
+# Chosen before the H100 port; not measured on the H100 (ROADMAP D2).
 # Overridable via BA_CHUNK for A/B runs (read at import).
 import os as _os
 CHUNK_ROWS = int(_os.environ.get("BA_CHUNK", 1 << 16))
@@ -158,7 +149,6 @@ def auto_chunk(n: int, threshold: int = 1 << 18) -> int | None:
 def assemble_blocks(problem: BAProblem, cams=None, points=None,
                     chunk: int | str | None = "auto",
                     with_jr: bool = True,
-                    kminor: bool = False,
                     w_dtype=None) -> GNBlocks:
     """Linearize at (cams, points) and assemble all Gauss-Newton blocks.
 
@@ -173,23 +163,18 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None,
     ``with_jr=False`` (hot-solver path): do not keep the per-observation
     ``r``/``Jc``/``Jp`` arrays — the LM iteration only needs the reduced
     blocks, the folded-in ``obj``, and `ops.schur.quad_form` for the step
-    quadratic. Saves ~104 B/obs of HBM writes + the same in later reads.
+    quadratic. Saves ~104 B/obs of device-memory writes + the same in
+    later reads.
 
-    ``kminor=True`` (fused-Pallas solver path; requires the sorted layout
-    and ``with_jr=False``): produce the Hessian/gradient blocks with the
-    fused streaming reduce kernels (`ops/pallas_schur.py`) instead of XLA
-    scatter-adds, and return W in the k-minor point-/camera-sorted layouts
-    the fused solve streams (``W_f`` is None on this path).
+    ``w_dtype``: store W in this dtype (the low-precision facto storage);
+    the streamed branch casts each chunk so a full-width W in the working
+    dtype never exists.
     """
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
     n = problem.nobs_pad
     if chunk == "auto":
         chunk = auto_chunk(n)
-    if kminor:
-        assert not with_jr, "kminor assembly is the with_jr=False hot path"
-        return _assemble_kminor(problem, cams, points, chunk,
-                                w_dtype=w_dtype)
     from bundleadjustment_jl_tpu.ops.blockmul import (
         jcT_dot, jjT_outer, jpT_dot)
     from bundleadjustment_jl_tpu.ops import spmdctx
@@ -225,11 +210,8 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None,
     dt = cams.dtype
 
     def block(ci, pi, xy_f, w, m):
-        """One chunk's contributions (m = rows in this block).
-
-        Accumulator shapes stay FLAT 1-D: (npnts, 3, 3)-shaped scan
-        carries can be tile-padded by the TPU layout assigner (measured
-        up to 113x for {2,1,0:T(8,128)}); flat carries stay packed."""
+        """One chunk's contributions (m = rows in this block); the
+        accumulators stay flat 1-D like the GNBlocks fields."""
         r, Jc, Jp = rj_raw(cams, points, ci, pi, xy_f.reshape(m, 2), w)
         Jc_f, Jp_f = Jc.reshape(-1), Jp.reshape(-1)
         return (0.5 * jnp.sum(r * r),
@@ -242,19 +224,11 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None,
                 jjT_outer(Jc_f, 9, Jp_f, 3),
                 (r, Jc_f, Jp_f))
 
-    # NB: scan xs/ys buffers keep the per-step shape as minor dims, and TPU
-    # tile-pads minor dims (2,9)->(8,128) etc. — measured 4+ GB of padding
-    # copies at 1.4M obs. The 1-D per-step arrays therefore travel FLAT
-    # (chunk*d,) and are reshaped outside the scan (both sides packed
-    # row-major -> free). pt2d must NOT travel as xs at all: every
-    # whole-array reform of the (n, 2) input — the xs slice directly
-    # (round 2), `pt2d.reshape(-1)` (round-3 first retry), and the same
-    # reshape behind an optimization_barrier (second retry) — made XLA
-    # materialize a T(8,128)-layout copy of all n rows: 64x padding,
-    # 14.9 GB, the measured _lm_init OOM at Final-13682
-    # (logs/r3b/driver2.log). Instead each step dynamic-slices its
-    # (chunk, 2) window straight out of the parameter inside the body —
-    # only the per-chunk window ever materializes.
+    # The per-step arrays travel FLAT (chunk*d,) and are reshaped outside
+    # the scan, and each step dynamic-slices its (chunk, 2) pt2d window
+    # straight out of the parameter, so no whole-array copy of the (n, 2)
+    # input is ever made. Chosen for a tiled device layout before the
+    # H100 port; not measured on the H100 (ROADMAP D2).
     xs = (problem.cam_idx[:nfull].reshape(nchunks, chunk),
           problem.pnt_idx[:nfull].reshape(nchunks, chunk),
           jnp.arange(nchunks, dtype=jnp.int32) * chunk,
@@ -265,8 +239,8 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None,
 
     # Cast each W chunk to the storage dtype INSIDE the scan (bf16
     # facto): the stacked ys buffer is then (n*27,) in w_dtype and the
-    # full-width f32 W (3.4 GB at Final-13682) never exists. f16 cannot
-    # take this path (range scale needs the global max first,
+    # full-width f32 W (3.4 GB at Final-13682 sizes) never exists. f16
+    # cannot take this path (range scale needs the global max first,
     # `_maybe_cast_facto`) — its callers pass w_dtype=None here.
     wd = dt if w_dtype is None else jnp.dtype(w_dtype)
 
@@ -308,168 +282,12 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None,
         W_f=W, obj=spmdctx.psum(obj), r_f=r, Jc_f=Jc, Jp_f=Jp)
 
 
-def _assemble_kminor(problem: BAProblem, cams, points,
-                     chunk: int | None, w_dtype=None) -> GNBlocks:
-    """Fused-kernel assembly: linearize into a stacked k-minor array and
-    reduce with the Pallas segment-product kernels (no scatter anywhere).
-
-    Layout: ``JR_t`` (32, nobs_pad) — rows 0-17 Jc (j = 9i+a), 18-23 Jp
-    (3i+b), 24-25 r, 26-31 zero (`pallas_schur._JC0/_JP0/_R0`) — in the
-    native point-sorted row order; ``JR_cam_t`` the camera-sorted lane
-    permutation.  The linearization itself runs as a Pallas kernel
-    (`ops/pallas_linearize.py`: the whole chain scalarized per lane —
-    the XLA scan formulation was measured at 1.8 GB/s, 184 of 237 ms of
-    assembly at Dubrovnik-356, from tile-padded (m, 2, 9) intermediates)
-    and emits W_t in the same pass.  One streaming reduce kernel per
-    direction produces [Hcc | g_c] (90/camera) and [Hpp | g_p]
-    (12/point).  W_t/W_cam_t are lambda-independent and carried.
-
-    ``chunk`` is unused on this path (the kernel streams in blocks); it
-    remains in the signature for call symmetry with the XLA assembly.
-    """
-    del chunk
-    from bundleadjustment_jl_tpu.ops import (
-        pallas_linearize, pallas_schur, spmdctx)
-    dt = cams.dtype
-    if (pallas_schur.cam_scatter_ok(problem, problem.ncams)
-            and problem.ncams <= pallas_schur.GATHER_TABLE_MAX_CAMS):
-        # fully-fused single-pass assembly (`ops/pallas_assemble.py`):
-        # the stacked JR array never exists; ~160 B/row of HBM traffic
-        # vs ~640 for the split linearize + reduce pipeline.
-        from bundleadjustment_jl_tpu.ops import pallas_assemble
-        bounds = pallas_schur.tile_bounds(problem.pnt_starts,
-                                          problem.npnts)
-        ntiles = bounds.shape[0] - 1
-        pw = pallas_assemble.pack_pw(problem)
-        C = pallas_schur._chunk_rows(problem.nobs_pad)
-        pts16 = pallas_assemble.pad_points(points, ntiles, C)
-        W_t, outp, out_c, obj = pallas_assemble.assemble_scatter(
-            pw, pts16, cams.astype(jnp.float32), bounds, problem.ncams,
-            problem.npnts, out_dtype=jnp.dtype(w_dtype or dt))
-        obj = spmdctx.psum(obj[0, 0].astype(dt))
-        out_c = spmdctx.psum(out_c)
-        out_p = outp[:problem.npnts]
-        return GNBlocks(
-            g_c_f=out_c[:, 81:90].astype(dt).reshape(-1),
-            g_p_f=out_p[:, 9:12].astype(dt).reshape(-1),
-            Hcc_f=out_c[:, :81].astype(dt).reshape(-1),
-            Hpp_f=out_p[:, :9].astype(dt).reshape(-1),
-            W_f=None, obj=obj,
-            W_t=W_t if w_dtype else W_t.astype(dt),
-            W_cam_t=None)
-    cxw = pallas_linearize.pack_operands(
-        cams, points, problem.cam_idx, problem.pnt_idx, problem.pt2d,
-        problem.w)
-    JR_t, W_t = pallas_linearize.linearize_w_kminor(cxw, w_dtype=w_dtype)
-    # spmd: objective and camera-space blocks sum over the mesh axis
-    # (rows are device-local); point-space blocks stay local.
-    obj = spmdctx.psum(0.5 * jnp.sum(JR_t[24:26] ** 2))
-    # A full camera-sorted JR copy stops paying at Final scale: JR_cam_t
-    # is another 4.0 GB f32 resident and its lane permutation takes the
-    # relayout-unsafe huge-n gather path. There, reduce the camera
-    # blocks with the one-hot scatter kernel instead (O(ncams*C) MXU
-    # work, but ONCE per accepted step, not per matvec).
-    huge = (JR_t.shape[1] * 128 * 4
-            > pallas_schur.GATHER_DIRECT_MAX_BYTES)
-    if pallas_schur.cam_scatter_ok(problem, problem.ncams) or huge:
-        # camera-scatter mode: camera-direction reduces stream the
-        # point-sorted arrays directly — the camera-sorted JR lane
-        # permutation (256 B/row of gather traffic and 4 GB of HBM
-        # residency at Final) is never built.
-        bounds = pallas_schur.tile_bounds(problem.pnt_starts,
-                                          problem.npnts)
-        out_c = spmdctx.psum(pallas_schur.cam_scatter_reduce(
-            JR_t, problem.cam_idx, bounds, problem.ncams, d_out=90,
-            prod=pallas_schur._prod_cam90))
-        W_cam_t = None
-        if huge and not pallas_schur.cam_scatter_ok(problem,
-                                                    problem.ncams):
-            # Fallback for huge problems with camera-scatter mode OFF
-            # (BA_CAM_SCATTER=0 or ncams beyond CAM_SCATTER_MAX_CAMS).
-            # Round 5's factorized scatter made the scatter route the
-            # Final default (d9 scatter 214 ms vs segsum 43 + operand
-            # gather 382 ms per matvec, logs/abtest_r5.log), so this
-            # branch no longer runs at Final; the numbers below are the
-            # round-3/4 FLAT-one-hot measurements that motivated it.
-            # The per-MATVEC camera reduce here wants the cam-sorted W
-            # (segsum 95 ms vs flat one-hot scatter 1709 ms per matvec
-            # at ncams=13682, logs/r3e/abtest.log). Permuting W_t costs
-            # 9.6 s per accept (32 random-access row gathers at
-            # ~0.8 GB/s, logs/r4/final_profile_r4c.log); RE-LINEARIZING
-            # on camera-sorted operands streams at kernel rate and is
-            # bit-identical (same per-lane f32 chain).
-            # Operand rows built in k-minor form throughout — a row
-            # gather of the (n, 2) pt2d would tile-pad 2 -> 128 lanes
-            # (16 GB at Final); the (2, n) transpose + 2-row flat
-            # gather stays packed. The build runs in HALF-width slices:
-            # one whole-width (16, n) f32 operand is 2.0 GB live on top
-            # of JR_t/W_t, the measured ~0.2 GB HBM overflow at Final
-            # (/tmp/probe_trialfix3, round 4).
-            perm = problem.cam_perm
-            n_pad = perm.shape[0]
-            # Both half-slices must stay block-aligned for
-            # `linearize_w_only` (its grid is m // _block_cols(m)):
-            # round the split down to a 128 multiple (the _block_cols
-            # floor, so both slices resolve a dividing width) and fail
-            # loudly if the padding invariant ever changes (advisor,
-            # round 4 — a misaligned slice must not zero W columns).
-            half = (n_pad // 2) // 128 * 128
-            for m in (half, n_pad - half):
-                if m % pallas_linearize._block_cols(m):
-                    raise ValueError(
-                        f"relinearization slice {m} not a multiple of "
-                        f"its block width at n_pad={n_pad}")
-            xy_t = problem.pt2d.T
-            cams_t16 = cams.T
-            points_t16 = points.T
-            out_dt = jnp.dtype(w_dtype) if w_dtype else jnp.float32
-            W_cam_t = jnp.zeros((32, n_pad), out_dt)
-            for lo, m in ((0, half), (half, n_pad - half)):
-                perm_s = jax.lax.dynamic_slice(perm, (lo,), (m,))
-                ci_cs = problem.cam_idx[perm_s]
-                pi_cs = problem.pnt_idx[perm_s]
-                xy_cs = pallas_schur.gather_k_minor(xy_t, perm_s)
-                w_cs = problem.w[perm_s].reshape(1, -1)
-                c_t = pallas_schur.gather_k_minor(cams_t16, ci_cs)
-                x_t = pallas_schur.gather_k_minor(points_t16, pi_cs)
-                cxw_cs = jnp.concatenate(
-                    [c_t, x_t, xy_cs, w_cs, jnp.zeros_like(w_cs)],
-                    axis=0).astype(jnp.float32)
-                W_cam_t = jax.lax.dynamic_update_slice(
-                    W_cam_t, pallas_linearize.linearize_w_only(
-                        cxw_cs, w_dtype=out_dt), (0, lo))
-            if not w_dtype:
-                W_cam_t = W_cam_t.astype(dt)
-    else:
-        cam_perm = problem.cam_perm
-        JR_cam_t = JR_t[:, cam_perm]
-        out_c = spmdctx.psum(pallas_schur.jtj_cam_reduce(
-            JR_cam_t, problem.cam_idx[cam_perm], problem.cam_starts,
-            problem.ncams))
-        W_cam_t = W_t[:, cam_perm]
-        if not w_dtype:
-            W_cam_t = W_cam_t.astype(dt)
-    out_p = pallas_schur.jtj_pnt_reduce(
-        JR_t, problem.pnt_idx, problem.pnt_starts, problem.npnts)
-    return GNBlocks(
-        g_c_f=out_c[:, 81:90].astype(dt).reshape(-1),
-        g_p_f=out_p[:, 9:12].astype(dt).reshape(-1),
-        Hcc_f=out_c[:, :81].astype(dt).reshape(-1),
-        Hpp_f=out_p[:, :9].astype(dt).reshape(-1),
-        W_f=None, obj=obj,
-        W_t=W_t if w_dtype else W_t.astype(dt),
-        W_cam_t=W_cam_t)
-
-
 def gradient_norm(blocks: GNBlocks) -> jnp.ndarray:
     """||J'r|| over the full variable vector (`src/lm.jl:57`, dual_feas).
 
     spmd: ``g_c`` is replicated (psummed at assembly), ``g_p`` is local
     per shard — only the point term all-reduces."""
     from bundleadjustment_jl_tpu.ops import spmdctx
-    # Flat views: squaring the (npnts, 3) shaped view materializes it
-    # tile-padded 42.7x (2.12 GB at Final-13682 inside the accept
-    # branch, logs/r4/final_capacity_r4_relin.log allocation #2).
     return jnp.sqrt(jnp.sum(blocks.g_c_f ** 2)
                     + spmdctx.psum(jnp.sum(blocks.g_p_f ** 2)))
 
@@ -477,7 +295,7 @@ def gradient_norm(blocks: GNBlocks) -> jnp.ndarray:
 def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Batched closed-form (adjugate) inverse of 3x3 SPD blocks.
 
-    Faster than a general LU on TPU and stable for the damped point blocks
+    Cheaper than a general LU and stable for the damped point blocks
     ``Hpp + lambda I`` (lambda >= 1e-8, `src/lm.jl:337`). Half precisions
     compute in f32 and cast back (determinant products underflow in bf16).
     """
@@ -519,26 +337,22 @@ def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
 
 def inv3x3_damped_flat(Hpp_f: jnp.ndarray, lam) -> jnp.ndarray:
     """``inv3x3(damp(Hpp, lam))`` computed entirely on flat (P, 9) columns
-    (row-major j = 3a + b) — the (P, 3, 3) shaped intermediates of the
-    shaped path can be materialized tile-padded ({2,1,0:T(8,128)}, up to
-    113x) inside the TPU while body at BAL point counts; column slices of
-    a (P, 9) view stay fused. Same conditioning guard as :func:`inv3x3`.
+    (row-major j = 3a + b); column slices of a (P, 9) view stay fused.
+    Same conditioning guard as :func:`inv3x3`.
 
-    At Final-13682 point counts even the flat form's stack feeds nine
-    (P, 1) buffers each lane-padded to (P, 128) — 9 x 2.12 GB measured
-    (logs/probe_final_compile4.log) — so very large P streams the same
-    computation through a fori_loop in bounded chunks."""
+    The direct form keeps about two (P, 9) buffers live (the nine
+    adjugate columns and the stacked result); past
+    ``residuals.GATHER_DIRECT_MAX_BYTES`` of them the same computation
+    streams through a fori_loop in ``GATHER_CHUNK``-point chunks."""
     dt = Hpp_f.dtype
     if dt in (jnp.bfloat16, jnp.float16):
         return inv3x3_damped_flat(Hpp_f.astype(jnp.float32),
                                   lam).astype(dt)
-    from bundleadjustment_jl_tpu.ops import pallas_schur as _ps
+    from bundleadjustment_jl_tpu.ops.residuals import (
+        GATHER_CHUNK, GATHER_DIRECT_MAX_BYTES)
     P = Hpp_f.size // 9
-    # ~10 lane-padded (P, 128) buffers are live at once in the direct
-    # form (9 adjugate columns + the stacked result), so the budget is
-    # per-buffer: GATHER_DIRECT_MAX_BYTES / 10.
-    if P * 128 * jnp.dtype(dt).itemsize > _ps.GATHER_DIRECT_MAX_BYTES // 10:
-        chunk = min(_ps.GATHER_CHUNK, P)
+    if 2 * P * 9 * jnp.dtype(dt).itemsize > GATHER_DIRECT_MAX_BYTES:
+        chunk = min(GATHER_CHUNK, P)
         nchunks = P // chunk
         nfull = nchunks * chunk
 

@@ -39,8 +39,8 @@ class PCGResult(NamedTuple):
 
 
 def _factor_dtype(dtype):
-    """Half precisions factor in f32 (mirrors MXU f32 accumulation; LAPACK
-    has no half-precision kernels on CPU either)."""
+    """Half precisions factor in f32 (neither LAPACK nor cuSOLVER has
+    half-precision Cholesky kernels)."""
     if dtype in (jnp.bfloat16, jnp.float16):
         return jnp.float32
     return dtype
@@ -67,13 +67,11 @@ def block_cho_solve(L: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 def block_jacobi_inverse(blocks: jnp.ndarray) -> jnp.ndarray:
     """Explicit batched M^{-1} of the SPD preconditioner blocks.
 
-    XLA lowers batched 9x9 ``solve_triangular`` to sequential loops on
-    TPU, and the PCG apply runs EVERY CG iteration — profiled at ~12 ms
-    per LM iteration at Dubrovnik-356 (logs/profile_r3a_iter.log).
-    Inverting once per lambda (two triangular solves against I, still
-    the slow primitive but once) turns every apply into one batched 9x9
-    matvec on the MXU. The damped blocks are SPD with lambda >= 1e-8, so
-    the explicit inverse is as stable as the factor-solve here."""
+    The PCG apply runs EVERY CG iteration; inverting once per lambda
+    (two triangular solves against I) turns every apply into one batched
+    9x9 matvec instead of two batched triangular solves. The damped
+    blocks are SPD with lambda >= 1e-8, so the explicit inverse is as
+    stable as the factor-solve here."""
     fdt = _factor_dtype(blocks.dtype)
     L = jnp.linalg.cholesky(blocks.astype(fdt))
     # eye must carry the batch dim explicitly: a (9, 9) rhs is ambiguous
@@ -156,8 +154,8 @@ def pcg(matvec: Callable, b: jnp.ndarray, precond: Callable,
         # Stagnation: with an inexact matvec (low-precision W) the
         # attainable residual stalls at ~eps_facto * kappa-ish, which can
         # sit just ABOVE tol — CG then grinds to max_iters chasing matvec
-        # noise (measured 27-30 matvecs/solve at LadyBug-460 bf16,
-        # logs/r4/bf16_floor_sweep.log). Track the best ||r||^2; no 4%
+        # noise (27-30 matvecs/solve at LadyBug-460 with bf16 W). Track
+        # the best ||r||^2; no 4%
         # improvement in `stagnation_window` consecutive steps = converged
         # to the attainable floor, stop. LM's gain-ratio acceptance
         # absorbs the resulting inexact step.

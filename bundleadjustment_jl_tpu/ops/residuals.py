@@ -5,9 +5,9 @@ loop (`/root/reference/src/BALNLPModels.jl:39-55`, ``residuals!``) and
 subtracts the observed 2D points in ``cons!`` (`BALNLPModels.jl:115-122`).
 Here the whole observation axis is one batched computation: gather camera and
 point rows, `vmap` the projection, subtract observations — XLA fuses the
-chain and vectorizes over the VPU; under `shard_map` the observation axis
-shards over the device mesh (the TPU analogue of the reference's
-`@threads` block partition, SURVEY.md §2.3).
+chain into one kernel; under `shard_map` the observation axis shards over
+the device mesh (the analogue of the reference's `@threads` block
+partition, SURVEY.md §2.3).
 
 Residual convention (matches the reference): ``res_k = proj(C_cam(k), X_pnt(k))
 - pt2d_k``, weighted by ``w_k`` (0 for padded rows).
@@ -22,6 +22,16 @@ from bundleadjustment_jl_tpu.models.camera import project_valid
 from bundleadjustment_jl_tpu.models.problem import BAProblem
 
 _project_batch = jax.vmap(project_valid, in_axes=(0, 0))
+
+# Above this many bytes of gathered per-observation camera rows
+# (nobs_pad * 9 * itemsize) the objective streams in GATHER_CHUNK-row
+# chunks (`objective_chunked`) instead of gathering the whole width at
+# once; `ops/normal.py:inv3x3_damped_flat` applies the same budget to its
+# point-block temporaries. No BAL problem reaches it on one 80 GB card
+# (Final-13682: ~1 GB of camera rows), so the direct form always runs
+# there; the chunked forms are the fallback for larger inputs.
+GATHER_DIRECT_MAX_BYTES = 4 << 30
+GATHER_CHUNK = 1 << 18
 
 
 def residuals(problem: BAProblem, cams=None, points=None) -> jnp.ndarray:
@@ -49,40 +59,21 @@ def objective(problem: BAProblem, cams=None, points=None) -> jnp.ndarray:
 
 
 def objective_chunked(problem: BAProblem, cams, points,
-                      chunk: int, points_t=None) -> jnp.ndarray:
+                      chunk: int) -> jnp.ndarray:
     """0.5 * ||r||^2 streamed over observation chunks.
 
-    The one-shot form's ``cams[cam_idx]`` gather materializes a row-major
-    (nobs, 9) buffer whose minor dim tile-pads 9 -> 128 — 14.9 GB at
-    Final-13682 (logs/probe_final_compile6.log). Chunking bounds the
-    gather to (chunk, 9) per scan step; pt2d windows are dynamic-sliced
-    straight from the parameter (cf. `ops/normal.py` streaming assembly;
-    whole-array reforms of the (n, 2) input trigger the same relayout).
-
-    ``points_t``: optional k-minor (3, npnts) point table used INSTEAD of
-    ``points`` — an internally-produced (npnts, 3) gather operand (e.g.
-    trial points ``points + s*dp``) is layout-assigned T(8,128) and
-    tile-pads 3 -> 128 lanes (2.12 GB at Final-13682,
-    logs/r4/final_capacity_r4_relin2.log allocation #3); the k-minor
-    form stays packed and each chunk gathers lanes."""
+    Chunking bounds the ``cams[cam_idx]`` gather to (chunk, 9) per scan
+    step; pt2d windows are dynamic-sliced straight from the parameter
+    (cf. `ops/normal.py` streaming assembly)."""
     cams = problem.cams if cams is None else cams
-    if points_t is None:
-        points = problem.points if points is None else points
+    points = problem.points if points is None else points
     n = problem.nobs_pad
     chunk = min(chunk, n)
     nchunks = n // chunk
     nfull = nchunks * chunk
 
     def piece(ci, pi, xy, w):
-        if points_t is not None:
-            # Barrier between the lane gather and the (chunk, 3)
-            # transpose: the simplifier otherwise commutes them into
-            # ONE hoisted (npnts, 3) transpose of the table — padded
-            # 42.7x, exactly the buffer this form exists to avoid.
-            pts = jax.lax.optimization_barrier(points_t[:, pi]).T
-        else:
-            pts = points[pi]
-        proj, valid = _project_batch(cams[ci], pts)
+        proj, valid = _project_batch(cams[ci], points[pi])
         r = (proj - xy) * (w * valid.astype(w.dtype))[:, None]
         return 0.5 * jnp.sum(r * r)
 

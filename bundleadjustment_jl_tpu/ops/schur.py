@@ -34,7 +34,7 @@ from bundleadjustment_jl_tpu.ops.blockmul import (
 from bundleadjustment_jl_tpu.ops import spmdctx
 from bundleadjustment_jl_tpu.ops.gatherfree import take_cam, take_pnt
 from bundleadjustment_jl_tpu.ops.normal import (
-    GNBlocks, damp, inv3x3, inv3x3_damped_flat)
+    GNBlocks, damp, inv3x3_damped_flat)
 from bundleadjustment_jl_tpu.ops.segsum import (
     segment_sum_scatter, sorted_segment_sum)
 
@@ -42,7 +42,7 @@ from bundleadjustment_jl_tpu.ops.segsum import (
 class SchurSystem(NamedTuple):
     """The damped, point-eliminated camera system at a given lambda.
 
-    Flat storage + shaped views — same TPU tile-padding rationale as
+    Flat storage + shaped views, like
     :class:`bundleadjustment_jl_tpu.ops.normal.GNBlocks`.
     """
     Hcc_l_f: jnp.ndarray   # flat (ncams*81,) damped camera diagonal blocks
@@ -57,21 +57,11 @@ class SchurSystem(NamedTuple):
     cam_perm: jnp.ndarray | None = None
     cam_starts: jnp.ndarray | None = None
     pnt_perm: jnp.ndarray | None = None  # None = rows already point-sorted
-    # Fused-kernel operands (see ops/pallas_schur.py's layout contract):
-    # ``W_t`` = k-minor (32, nobs_pad) W blocks in point-sorted order,
-    # ``W_cam_t`` the same permuted camera-sorted.  Both depend only on
-    # the linearization point (NOT on lambda), so the k-minor assembly
-    # path carries them across lambda changes in GNBlocks and this struct
-    # just references them; the point-diagonal solve happens IN-KERNEL
-    # (Hpp_inv fold) during the point pass.  Two streamed arrays total:
-    # ``S v = Hcc_l v - segsum_cam(W_k (Hpp_inv segsum_pnt(W'v))[pnt_k])``.
-    W_t: jnp.ndarray | None = None
-    W_cam_t: jnp.ndarray | None = None
     # Low-precision range-equilibration scale (see GNBlocks.w_scale): the
-    # stored W arrays hold ``s * W``; ``Hpp_inv_f`` and ``g_p_f`` in THIS
+    # stored W holds ``s * W``; ``Hpp_inv_f`` and ``g_p_f`` in THIS
     # struct are hatted (``Hpp_inv / s^2``, ``s * g_p``) so every
     # S-product and the reduced RHS are exact, and the point step emerges
-    # as ``dp_hat = dp / s`` — unscaled at the back-substitution exits.
+    # as ``dp_hat = dp / s`` — unscaled at the back-substitution exit.
     w_scale: jnp.ndarray | None = None
 
     @property
@@ -95,16 +85,6 @@ class SchurSystem(NamedTuple):
         return self.g_p_f.reshape(-1, 3)
 
 
-def _use_pallas(sys: "SchurSystem") -> bool:
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    return pallas_schur.PALLAS_MODE and pallas_schur.available(sys)
-
-
-def _cam_scatter(s, ncams: int) -> bool:
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    return pallas_schur.cam_scatter_ok(s, ncams)
-
-
 def _seg_pnt(sys: "SchurSystem", values: jnp.ndarray) -> jnp.ndarray:
     from bundleadjustment_jl_tpu.ops import segsum
     if segsum.SORTED_MODE and sys.pnt_starts is not None:
@@ -122,13 +102,7 @@ def _seg_cam(sys: "SchurSystem", values: jnp.ndarray) -> jnp.ndarray:
 
 
 def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
-    """Damp with ``lambda`` and form the reduced camera RHS.
-
-    On the fused-kernel path the lambda-independent k-minor ``W_t`` /
-    ``W_cam_t`` operands come from the blocks when the k-minor assembly
-    produced them (carried across lambda changes — no per-lambda
-    transpose/permute), and are built here once otherwise (host-driver /
-    XLA-assembly fallback)."""
+    """Damp with ``lambda`` and form the reduced camera RHS."""
     Hcc_l = damp(blocks.Hcc, lam)
     Hpp_inv_f = inv3x3_damped_flat(blocks.Hpp_f, lam)
     g_p_f = blocks.g_p_f
@@ -147,33 +121,8 @@ def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
                       cam_perm=problem.cam_perm,
                       cam_starts=problem.cam_starts,
                       pnt_perm=problem.pnt_perm,
-                      W_t=blocks.W_t, W_cam_t=blocks.W_cam_t,
                       w_scale=blocks.w_scale)
     # b = -g_c + W Hpp_inv g_p   (one 9x3 block product per observation)
-    if _use_pallas(sys):
-        from bundleadjustment_jl_tpu.ops import pallas_schur
-        from bundleadjustment_jl_tpu.ops.blockmul import m33_dot_kminor
-        ncams = sys.Hcc_l.shape[0]
-        if sys.W_t is None:
-            W_t = pallas_schur.to_k_minor(blocks.W_f)
-            sys = sys._replace(W_t=W_t)
-            if not pallas_schur.cam_scatter_ok(sys, ncams):
-                # cam-sorted copy always: gather_k_minor's huge-table
-                # branch keeps the Final-scale permute relayout-free
-                # (flat row gathers), and the cam-sorted segsum beats
-                # the O(ncams*n) scatter kernel 95 ms vs 1709 ms per
-                # matvec at ncams=13682 (logs/r3e/abtest.log).
-                sys = sys._replace(
-                    W_cam_t=pallas_schur.gather_k_minor(W_t, sys.cam_perm))
-        # b = -g_c + segsum_cam(W_k (Hpp_inv g_p)[pnt_k]); the per-point
-        # product goes straight to k-minor (3, npnts) — the row-major
-        # (npnts, 3) handoff tile-padded 42.7x at Final (blockmul
-        # m33_dot_kminor docstring).
-        tmp3 = m33_dot_kminor(sys.Hpp_inv_f, sys.g_p_f)
-        tmp8 = pallas_schur.pad_rows(tmp3, 8)
-        corr = spmdctx.psum(_cam_dir_reduce(sys, tmp8)
-                            .astype(sys.g_p_f.dtype))
-        return sys._replace(b_f=(-blocks.g_c + corr).reshape(-1))
     tmp = m33_dot(sys.Hpp_inv_f, sys.g_p)                    # (npnts,3)
     tmp_obs = take_pnt(tmp, problem.pnt_idx, problem.pnt_starts,
                        problem.pnt_perm)
@@ -182,152 +131,10 @@ def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
     return sys._replace(b_f=(-blocks.g_c + corr).reshape(-1))
 
 
-def _cam_dir_reduce(sys: SchurSystem, op8: jnp.ndarray) -> jnp.ndarray:
-    """Fused ``segsum_cam(W_k op[pnt_k])`` -> (ncams, 9), choosing
-    between the camera-scatter kernel (point-sorted stream, no
-    camera-sorted W copy, no (8, n) operand gather) and the camera-
-    sorted pass.  ``op8``: k-minor (8, npnts) per-point 3-vectors."""
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    ncams = sys.Hcc_l.shape[0]
-    npnts = sys.Hpp_inv.shape[0]
-    if pallas_schur.cam_reduce_scatter_ok(sys, ncams, sys.W_cam_t):
-        bounds = pallas_schur.tile_bounds(sys.pnt_starts, npnts)
-        return pallas_schur.cam_scatter_reduce(
-            sys.W_t, sys.cam_idx, bounds, ncams, d_out=9,
-            prod=pallas_schur._prod_w_op, idx_row=sys.pnt_idx, op_t=op8)
-    # bf16-stored W already bounds the matvec accuracy at ~2^-9 relative
-    # (the CG eps-floor in solver/lm_jit.py accounts for it); gathering
-    # the per-row operand in the same dtype halves the dominant
-    # per-matvec gather traffic (381 ms f32 at Final-13682,
-    # logs/r3e/abtest.log group B) at no additional accuracy cost. The
-    # kernel accumulates in f32 either way (out_dtype below).
-    if sys.W_cam_t.dtype == jnp.bfloat16:
-        op8 = op8.astype(jnp.bfloat16)
-    return pallas_schur.wt_cam_reduce(
-        sys.W_cam_t,
-        pallas_schur.gather_k_minor(op8,
-                                    sys.pnt_idx[sys.cam_perm]),
-        sys.cam_idx[sys.cam_perm], sys.cam_starts, ncams,
-        out_dtype=jnp.float32)
-
-
-def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
-    """(SchurSystem, exact S diagonal 9x9 blocks) for the PCG branch.
-
-    On the fused camera-scatter path the reduced RHS correction and the
-    ``W Hpp_inv W'`` diagonal come out of ONE W stream (d_out = 90
-    combined product); elsewhere this is exactly
-    ``reduce_system(...)`` + ``schur_diag_blocks(...)``."""
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    ncams = blocks.Hcc.shape[0]
-    if (pallas_schur.PALLAS_MODE and blocks.W_t is not None
-            and _cam_scatter(problem, ncams)):
-        dt = blocks.g_c_f.dtype
-        Hcc_l = damp(blocks.Hcc, lam)
-        Hpp_inv_f = inv3x3_damped_flat(blocks.Hpp_f, lam)
-        g_p_f = blocks.g_p_f
-        if blocks.w_scale is not None:   # hatted point space (see above)
-            Hpp_inv_f = Hpp_inv_f / jnp.square(blocks.w_scale)
-            g_p_f = g_p_f * blocks.w_scale
-        tmp = m33_dot(Hpp_inv_f, g_p_f.reshape(-1, 3))       # (npnts, 3)
-        h6 = Hpp_inv_f.reshape(-1, 9)[:, jnp.array([0, 1, 2, 4, 5, 8])]
-        npnts = h6.shape[0]
-        op16 = pallas_schur.pad_rows(
-            jnp.concatenate([h6.T, tmp.T], axis=0).astype(jnp.float32),
-            16)
-        bounds = pallas_schur.tile_bounds(problem.pnt_starts, npnts)
-        out = spmdctx.psum(pallas_schur.cam_scatter_reduce(
-            blocks.W_t, problem.cam_idx, bounds, ncams, d_out=90,
-            prod=pallas_schur._prod_wcw_rhs, idx_row=problem.pnt_idx,
-            op_t=op16))
-        sys = SchurSystem(
-            Hcc_l_f=Hcc_l.reshape(-1), Hpp_inv_f=Hpp_inv_f,
-            W_f=blocks.W_f,
-            b_f=(-blocks.g_c + out[:, 81:90].astype(dt)).reshape(-1),
-            g_p_f=g_p_f, cam_idx=problem.cam_idx,
-            pnt_idx=problem.pnt_idx, pnt_starts=problem.pnt_starts,
-            cam_perm=problem.cam_perm, cam_starts=problem.cam_starts,
-            pnt_perm=problem.pnt_perm,
-            W_t=blocks.W_t, W_cam_t=blocks.W_cam_t,
-            w_scale=blocks.w_scale)
-        Sd = Hcc_l - out[:, :81].reshape(-1, 9, 9).astype(Hcc_l.dtype)
-        return sys, Sd
-    sys = reduce_system(problem, blocks, lam)
-    return sys, schur_diag_blocks(sys)
-
-
-def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
-                         sys: SchurSystem, dc: jnp.ndarray):
-    """(dp, ||J d||^2) — on the fused scatter path the back-substitution
-    and the quad-form cross reduction share ONE W stream (the fused
-    matvec kernel with g_p folded and sign = -1: its per-tile ``t`` IS
-    ``dp``, and its camera output is ``segsum_cam(W dp)``)."""
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    ncams = sys.Hcc_l.shape[0]
-    npnts = sys.Hpp_inv.shape[0]
-    if (_use_pallas(sys) and sys.W_t is not None
-            and _cam_scatter(sys, ncams)
-            and ncams <= pallas_schur.GATHER_TABLE_MAX_CAMS):
-        bounds = pallas_schur.tile_bounds(sys.pnt_starts, npnts)
-        cross_cam, dp8 = pallas_schur.matvec_cam_scatter(
-            sys.W_t, dc, sys.cam_idx, sys.pnt_idx, sys.Hpp_inv_f,
-            bounds, ncams, npnts, gp_f=sys.g_p_f, sign=-1.0,
-            with_dp=True)
-        dp = dp8[:3, :npnts].T.astype(dc.dtype)              # (npnts, 3)
-        if sys.w_scale is not None:
-            # the kernel's t is dp_hat = dp/s (hatted operands); the
-            # camera output segsum_cam(sW * dp/s) is already exact.
-            dp = dp * sys.w_scale.astype(dp.dtype)
-        t_c = jnp.sum(dc * jnp.einsum(
-            "cab,cb->ca", blocks.Hcc, dc,
-            precision=jax.lax.Precision.HIGHEST))
-        t_p = spmdctx.psum(jnp.sum(dp * m33_dot(blocks.Hpp_f, dp)))
-        cross = spmdctx.psum(
-            jnp.sum(cross_cam * dc.astype(cross_cam.dtype))
-            .astype(t_c.dtype))
-        return dp, t_c + 2.0 * cross + t_p
-    dp = back_substitute(sys, dc)
-    if blocks.W_t is None and sys.W_t is not None:
-        # Non-k-minor mode (Final-scale fallback): the blocks carry only
-        # flat W_f, but reduce_system built the per-lambda k-minor W_t /
-        # W_cam_t — hand them to quad_form so its cross term runs the
-        # fused stream instead of the XLA (n, 27) path, whose tiled
-        # operands are a measured 14.9 GB compile-time OOM at
-        # Final-13682 (logs/probe_final_compile.log).
-        blocks = blocks._replace(W_t=sys.W_t, W_cam_t=sys.W_cam_t,
-                                 w_scale=sys.w_scale)
-    return dp, quad_form(problem, blocks, dc, dp)
-
-
 def schur_matvec(sys: SchurSystem, v: jnp.ndarray) -> jnp.ndarray:
     """Matrix-free ``S @ v`` for ``v`` of shape (ncams, 9)."""
     u = jnp.einsum("cab,cb->ca", sys.Hcc_l, v,
                    precision=jax.lax.Precision.HIGHEST)
-    if _use_pallas(sys) and sys.W_t is not None:
-        from bundleadjustment_jl_tpu.ops import pallas_schur
-        ncams = sys.Hcc_l.shape[0]
-        npnts = sys.Hpp_inv.shape[0]
-        if (_cam_scatter(sys, ncams)
-                and ncams <= pallas_schur.GATHER_TABLE_MAX_CAMS):
-            # FUSED single-stream matvec: t computed per point tile
-            # in-kernel (v gathered from the VMEM table), W chunks
-            # cached in VMEM for the immediate camera-scatter apply —
-            # W crosses HBM once, no (8, npnts) intermediate.
-            bounds = pallas_schur.tile_bounds(sys.pnt_starts, npnts)
-            u2 = spmdctx.psum(pallas_schur.matvec_cam_scatter(
-                sys.W_t, v, sys.cam_idx, sys.pnt_idx, sys.Hpp_inv_f,
-                bounds, ncams, npnts).astype(u.dtype))
-            return u - u2
-        # Two passes, one per-point handoff between them: the point
-        # pass streams W and folds the point-diagonal solve in-kernel,
-        # so t8 = Hpp_inv segsum_pnt(W'v) emerges k-minor (8, npnts)
-        # already diagonally solved (in f32, even when W is stored bf16
-        # — the fold never touches the low-precision array).
-        t8 = pallas_schur.wtv_point_reduce(
-            sys.W_t, v, sys.pnt_idx, sys.cam_idx, sys.pnt_starts,
-            npnts, hpp_inv_f=sys.Hpp_inv_f, out_k8=True)
-        u2 = spmdctx.psum(_cam_dir_reduce(sys, t8).astype(u.dtype))
-        return u - u2
     # W' v, accumulated per point (point rows are shard-local under spmd)
     t = _seg_pnt(sys, wT_dot_a(sys.W_f, take_cam(v, sys.cam_idx)))
     t = m33_dot(sys.Hpp_inv_f, t)
@@ -348,43 +155,15 @@ def schur_diag_blocks(sys: SchurSystem,
     """
     from bundleadjustment_jl_tpu.ops.normal import auto_chunk
     ncams = sys.Hcc_l.shape[0]
-    if (_use_pallas(sys)
-            and (sys.W_cam_t is not None or sys.W_t is not None)):
-        from bundleadjustment_jl_tpu.ops import pallas_schur
-        # ONE streaming pass over W + packed-symmetric Hpp_inv: the
-        # per-observation W C W' product and its per-camera reduction
-        # happen in VMEM/MXU — no (n, 81) materialization, no scatter
-        # (the measured co-dominant per-iteration cost).
-        if pallas_schur.cam_reduce_scatter_ok(sys, ncams, sys.W_cam_t):
-            # point-sorted stream; Hpp_inv rides as a per-POINT operand
-            h6 = sys.Hpp_inv_f.reshape(-1, 9)[
-                :, jnp.array([0, 1, 2, 4, 5, 8])]
-            bounds = pallas_schur.tile_bounds(sys.pnt_starts,
-                                              sys.Hpp_inv.shape[0])
-            wcw = spmdctx.psum(pallas_schur.cam_scatter_reduce(
-                sys.W_t, sys.cam_idx, bounds, ncams, d_out=81,
-                prod=pallas_schur._prod_wcw, idx_row=sys.pnt_idx,
-                op_t=pallas_schur.pad_rows(h6.T, 8)))
-        else:
-            c6 = pallas_schur.hpp_inv_sym6_t(sys.Hpp_inv_f,
-                                             sys.pnt_idx[sys.cam_perm])
-            wcw = spmdctx.psum(pallas_schur.wcw_cam_reduce(
-                sys.W_cam_t, c6, sys.cam_idx[sys.cam_perm],
-                sys.cam_starts, ncams))
-        return sys.Hcc_l - wcw.reshape(-1, 9, 9).astype(sys.Hcc_l.dtype)
-    # NB: size//27, not sys.W.shape[0] — the property reshape of the flat W
-    # carry to (n, 9, 3) survives into the TPU while-body HLO even unused,
-    # where it is tile-padded 75.9x (18.3 GB at Venice-1350) and OOMs.
     n = sys.W_f.size // 27
     if chunk == "auto":
         chunk = auto_chunk(n)
-    # Gathers run on the flat (P, 9) view — a gather operand must be
-    # materialized, and (P, 3, 3) tables tile-pad up to 57x on TPU.
     Hpp_inv9 = sys.Hpp_inv_f.reshape(-1, 9)
     if chunk is None or n <= chunk:
         Hpp_inv_obs = take_pnt(Hpp_inv9, sys.pnt_idx, sys.pnt_starts,
                                sys.pnt_perm).reshape(-1, 3, 3)
-        WCW = jnp.einsum("kab,kbc,kdc->kad", sys.W, Hpp_inv_obs, sys.W)
+        WCW = jnp.einsum("kab,kbc,kdc->kad", sys.W, Hpp_inv_obs, sys.W,
+                         precision=jax.lax.Precision.HIGHEST)
         return sys.Hcc_l - spmdctx.psum(_seg_cam(sys, WCW))
 
     nchunks = n // chunk      # remainder handled as one tail block
@@ -392,19 +171,17 @@ def schur_diag_blocks(sys: SchurSystem,
     rem = n - nfull
 
     def wcw_sum(W_f, ci, pi, m):
-        # The barrier stops XLA from hoisting the per-chunk (m, 9, 3)
-        # reshape out of the scan: hoisted, it becomes a full-width
-        # (n, 9, 3) buffer that rematerialization "compresses" to a
-        # tile-padded bf16 copy — 18.3 GB at Venice-1350 (measured;
-        # 'reshape.N.remat2' in the compile error).
+        # The barrier keeps XLA from hoisting the per-chunk (m, 9, 3)
+        # reshape out of the scan as one full-width (n, 9, 3) buffer.
+        # Chosen before the H100 port; not measured on the H100
+        # (ROADMAP D2).
         W_f = jax.lax.optimization_barrier(W_f)
         W = W_f.reshape(m, 9, 3)
         C = Hpp_inv9[pi].reshape(m, 3, 3)
-        WCW = jnp.einsum("kab,kbc,kdc->kad", W, C, W)
+        WCW = jnp.einsum("kab,kbc,kdc->kad", W, C, W,
+                         precision=jax.lax.Precision.HIGHEST)
         return segment_sum_scatter(WCW, ci, ncams)
 
-    # flat per-step layout — see the tile-padding note in
-    # ops/normal.py:assemble_blocks
     xs = (sys.W_f[:nfull * 27].reshape(nchunks, chunk * 27),
           sys.cam_idx[:nfull].reshape(nchunks, chunk),
           sys.pnt_idx[:nfull].reshape(nchunks, chunk))
@@ -426,19 +203,9 @@ def back_substitute(sys: SchurSystem, dc: jnp.ndarray) -> jnp.ndarray:
 
     With a low-precision ``w_scale`` the hatted operands yield
     ``dp_hat = dp / s``; the exit multiplies the scale back."""
-    s = (jnp.ones((), dc.dtype) if sys.w_scale is None
-         else sys.w_scale.astype(dc.dtype))
-    if _use_pallas(sys) and sys.W_t is not None:
-        from bundleadjustment_jl_tpu.ops import pallas_schur
-        # dp = -Hpp_inv (g_p + segsum_pnt(W' dc)) — in-kernel fold + add.
-        dp = pallas_schur.wtv_point_reduce(
-            sys.W_t, dc, sys.pnt_idx, sys.cam_idx, sys.pnt_starts,
-            sys.Hpp_inv.shape[0], hpp_inv_f=sys.Hpp_inv_f,
-            add_gp=sys.g_p_f, sign=-1.0)
-        return dp if sys.w_scale is None else dp * s
     t = _seg_pnt(sys, wT_dot_a(sys.W_f, take_cam(dc, sys.cam_idx)))
     dp = -m33_dot(sys.Hpp_inv_f, sys.g_p + t)
-    return dp if sys.w_scale is None else dp * s
+    return dp if sys.w_scale is None else dp * sys.w_scale.astype(dc.dtype)
 
 
 def quad_form(problem: BAProblem, blocks: GNBlocks,
@@ -459,31 +226,6 @@ def quad_form(problem: BAProblem, blocks: GNBlocks,
     # (linear in W) consumes dp/s so s cancels exactly (power of two).
     dp_h = dp if blocks.w_scale is None \
         else dp / blocks.w_scale.astype(dp.dtype)
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    if pallas_schur.PALLAS_MODE and blocks.W_t is not None:
-        # cross = sum_c dc[c] . segsum_cam(W_k dp[pnt_k]) — one fused pass
-        # over the carried W (W_f is absent on this path).
-        dp8 = pallas_schur.pad_rows(dp_h.T, 8)
-        if pallas_schur.cam_reduce_scatter_ok(problem, problem.ncams,
-                                              blocks.W_cam_t):
-            bounds = pallas_schur.tile_bounds(problem.pnt_starts,
-                                              problem.npnts)
-            cross_cam = pallas_schur.cam_scatter_reduce(
-                blocks.W_t, problem.cam_idx, bounds, problem.ncams,
-                d_out=9, prod=pallas_schur._prod_w_op,
-                idx_row=problem.pnt_idx, op_t=dp8)
-        else:
-            if blocks.W_cam_t.dtype == jnp.bfloat16:
-                dp8 = dp8.astype(jnp.bfloat16)   # see _cam_dir_reduce
-            cross_cam = pallas_schur.wt_cam_reduce(
-                blocks.W_cam_t,
-                pallas_schur.gather_k_minor(
-                    dp8, problem.pnt_idx[problem.cam_perm]),
-                problem.cam_idx[problem.cam_perm], problem.cam_starts,
-                problem.ncams, out_dtype=jnp.float32)
-        return t_c + 2.0 * spmdctx.psum(
-            jnp.sum(cross_cam * dc.astype(cross_cam.dtype))
-            .astype(t_c.dtype)) + t_p
     dp_obs = take_pnt(dp_h, problem.pnt_idx, problem.pnt_starts,
                       problem.pnt_perm)
     cross = spmdctx.psum(jnp.sum(w_dot_b(blocks.W_f, dp_obs)
@@ -511,19 +253,17 @@ def predicted_reduction(problem: BAProblem, blocks: GNBlocks,
 # ---------------------------------------------------------------------------
 
 # Dense-path residency cap: the two (3*npnts, 9*ncams) streaming targets
-# plus S and temps must fit HBM with headroom.  Past it the dense solver
-# is a CAPABILITY gap (like the reference's QR dying at scale,
-# `/root/reference/benchmark/first/lmqramd.log`) and is refused cleanly
-# BEFORE any compile — round 4's ungated refresh recorded 12 compile-time
-# OOM rows (XLA materialized a 53.5 GB broadcast from the old 4-D
-# multi-index scatter at LadyBug-460).
+# plus S and temps must fit device memory with headroom.  Past it the
+# dense solver is a CAPABILITY gap (like the reference's QR dying at
+# scale, `/root/reference/benchmark/first/lmqramd.log`) and is refused
+# cleanly BEFORE any compile, instead of failing with a compile-time OOM.
 import os as _os
 DENSE_MAX_BYTES = int(_os.environ.get("BA_DENSE_MAX_BYTES", 6 << 30))
 DENSE_CHUNK = int(_os.environ.get("BA_DENSE_CHUNK", 4096))
 
 
 def dense_schur_bytes(ncams: int, npnts: int) -> int:
-    """Estimated peak HBM residency of :func:`assemble_dense_schur`."""
+    """Estimated peak device-memory residency of :func:`assemble_dense_schur`."""
     mats = 2 * (3 * npnts) * (9 * ncams) * 4          # U2 / Yd2
     s = 2 * (9 * ncams) ** 2 * 4                      # S + factor
     upd = 2 * 3 * DENSE_CHUNK * 9 * ncams * 4         # chunk updates
@@ -546,11 +286,10 @@ def assemble_dense_schur(sys: SchurSystem) -> jnp.ndarray:
     Streams the per-observation blocks in fixed-size chunks into two
     dense (3*npnts, 9*ncams) matrices — ``U2`` holds the W blocks, and
     ``Yd2`` the ``Y_k = W_k Hpp_inv[pnt(k)]`` blocks — via flat ROW
-    scatter-adds (rows 3*pnt+b; the camera placement is a one-hot einsum
-    on the MXU), then contracts them in one big matmul.  The previous
-    4-D multi-index scatter (`.at[cam_idx, :, pnt_idx, :]`) lowered to a
-    f32[9, 3, ncams*npnts] broadcast — 53.5 GB at LadyBug-460, the
-    measured round-4 compile-time OOM.  Peak residency is now
+    scatter-adds (rows 3*pnt+b; the camera placement is a one-hot
+    einsum), then contracts them in one big matmul.  A 4-D multi-index
+    scatter (`.at[cam_idx, :, pnt_idx, :]`) would lower to a
+    f32[9, 3, ncams*npnts] broadcast.  Peak residency is
     O(27 * ncams * npnts) f32 for the two streaming targets only
     (:func:`dense_schur_bytes`); intended for small/medium problems
     where a direct Cholesky beats PCG, and as the oracle for the
@@ -570,7 +309,7 @@ def assemble_dense_schur(sys: SchurSystem) -> jnp.ndarray:
 
     def place(blocks, cam):
         # (q, 9, 3) blocks -> (q*3, 9*ncams) rows (k, b) with the 9
-        # columns at camera offset 9*cam_k (one-hot MXU contraction).
+        # columns at camera offset 9*cam_k (one-hot contraction).
         oh = (cam[:, None] == jnp.arange(ncams)[None, :]).astype(cdt)
         upd = jnp.einsum("kab,kc->kbca", blocks, oh,
                          precision=jax.lax.Precision.HIGHEST)
@@ -602,7 +341,7 @@ def assemble_dense_schur(sys: SchurSystem) -> jnp.ndarray:
                 U2 = U2.at[rows].add(upd)
             else:
                 Yd2 = Yd2.at[rows].add(upd)
-    # S = Hcc_l (block diagonal) - Yd2' U2   (one MXU contraction)
+    # S = Hcc_l (block diagonal) - Yd2' U2   (one matmul)
     S = -jax.lax.dot_general(
         Yd2, U2, (((0,), (0,)), ((), ())),
         precision=jax.lax.Precision.HIGHEST)              # (9c, 9c)
@@ -615,8 +354,8 @@ def assemble_dense_schur(sys: SchurSystem) -> jnp.ndarray:
 def solve_dense(sys: SchurSystem) -> jnp.ndarray:
     """Direct Cholesky solve of the dense reduced system (small ncams).
 
-    Half precisions factor in f32 (TPU MXU accumulation dtype; CPU LAPACK
-    has no half kernels).
+    Half precisions factor in f32 (no half-precision Cholesky kernels
+    exist in LAPACK or cuSOLVER).
     """
     # Shapes are static, so this raises at TRACE time — every dense
     # entry point (CLI --solver dense, host driver, benchmark runner)

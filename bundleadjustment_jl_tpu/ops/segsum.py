@@ -1,8 +1,6 @@
 """Segmented reduction without scatter.
 
-`jax.ops.segment_sum` lowers to XLA scatter-add, which on TPU serializes
-updates and runs ~100x below HBM bandwidth — profiling showed it dominating
-the per-iteration cost (scripts/tpu_profile.py). With observations SORTED
+`jax.ops.segment_sum` lowers to XLA scatter-add. With observations SORTED
 by segment (done once, host-side, at problem build), a segment sum becomes
 
     z = exclusive_prefix_sum(values)        # parallel scan, log-depth
@@ -21,13 +19,10 @@ far cheaper than scatter.
 The scatter path remains as `segment_sum_scatter` for unsorted layouts
 (e.g. after `partition_problem`'s per-part padding).
 
-MEASURED VERDICT (one TPU chip, scripts/tpu_scaling.py): XLA's TPU
-scatter-add is in fact competitive, while `associative_scan` both inflates
-compile time ~20x (log-depth unrolled HLO over (nobs, 81) arrays) and runs
-~2x slower end-to-end. The scan path is therefore OFF by default
-(``SORTED_MODE = False``) and kept for (a) numerical experiments and
-(b) the sorted-layout metadata it shares with the planned Pallas
-tile-reduction kernel, which is the real speed-of-light path.
+The scan path is OFF by default (``SORTED_MODE = False``): the scatter
+form was the faster one before the H100 port, and the choice is not
+measured on the H100 (ROADMAP D2). The associative scan also inflates
+compile time (log-depth unrolled HLO over (nobs, 81) arrays).
 """
 
 from __future__ import annotations

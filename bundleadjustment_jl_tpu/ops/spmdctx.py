@@ -1,19 +1,15 @@
-"""SPMD reduction context for the fused-kernel solver under `shard_map`.
+"""SPMD reduction context for the solver under `shard_map`.
 
-The Pallas kernels (`ops/pallas_schur.py`, `ops/pallas_linearize.py`)
-operate on device-local arrays — under a multi-device `NamedSharding`
-the XLA path is the one GSPMD partitions automatically. To run the fused
-kernels multi-chip, the solver instead executes inside ONE `shard_map`
-(`solver/lm_spmd.py`): every device owns a contiguous, point-aligned
-shard of the observations (plus its points), cameras are replicated, and
-the camera-space reductions become explicit `psum`s over the mesh axis —
+The spmd driver (`solver/lm_spmd.py`) runs the whole LM loop inside ONE
+`shard_map`: every device owns a contiguous, point-aligned shard of the
+observations (plus its points), cameras are replicated, and the
+camera-space reductions become explicit `psum`s over the mesh axis —
 exactly the collective layout SURVEY.md §2.3/§6 prescribes (observation
-axis sharded, camera-axis all-reduce over ICI).
+axis sharded, camera-axis all-reduce over the interconnect).
 
 This module is that axis, as trace-time context. ``AXIS`` is None in
 every ordinary path (all hooks are no-ops, zero overhead); the spmd
-driver sets it while tracing its shard_map body, and mirrors it into the
-jit cache key the same way `pallas_schur.PALLAS_MODE` is.
+driver sets it while tracing its shard_map body.
 
 Hook placement (what is local vs replicated inside the shard_map body):
 
@@ -29,7 +25,7 @@ from __future__ import annotations
 
 import jax
 
-# Mesh axis name for the fused-kernel spmd solve; None = single-device /
+# Mesh axis name for the spmd solve; None = single-device /
 # GSPMD mode (all hooks no-ops). Set only by solver/lm_spmd.py at trace
 # time.
 AXIS: str | None = None

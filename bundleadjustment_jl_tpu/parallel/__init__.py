@@ -2,10 +2,10 @@
 
 The reference's only parallelism is shared-memory threads over observation
 blocks (`/root/reference/src/BALNLPModels.jl:40-53`, SURVEY.md §2.3). The
-TPU-native analogue: the observation axis is sharded over a
+analogue here: the observation axis is sharded over a
 `jax.sharding.Mesh`; XLA's SPMD partitioner turns every `segment_sum` into
-per-device partial sums + collectives over ICI (psum/reduce-scatter), and
-the PCG camera vectors stay replicated.
+per-device partial sums + collectives over the interconnect
+(psum/reduce-scatter), and the PCG camera vectors stay replicated.
 """
 
 from bundleadjustment_jl_tpu.parallel.mesh import (  # noqa: F401

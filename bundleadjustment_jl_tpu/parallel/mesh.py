@@ -9,7 +9,7 @@ insert collectives):
   device-local.
 - ``cams``/``points`` — replicated. Gathers ``cams[cam_idx]`` are local;
   ``segment_sum`` into camera/point space becomes a partial sum + psum
-  placed by the SPMD partitioner over ICI.
+  placed by the SPMD partitioner over the interconnect.
 - PCG state (ncams, 9) — replicated; each Schur matvec does sharded
   per-observation products and an all-reduce.
 

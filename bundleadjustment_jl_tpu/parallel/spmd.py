@@ -1,24 +1,23 @@
-"""Point-aligned observation sharding for the fused-kernel (Pallas) solver.
+"""Point-aligned observation sharding for the shard_map solver.
 
 The GSPMD mesh path (`parallel/mesh.py`) shards the observation arrays
-and lets XLA partition the scatter/gather formulation — but the Pallas
-kernels cannot be auto-partitioned, so `PALLAS_MODE` was single-device
-only. This module provides the spmd layout that lets the fused kernels
-run multi-chip (`solver/lm_spmd.py`):
+and lets XLA partition the scatter/gather formulation. This module
+provides the second layout, with explicit collectives
+(`solver/lm_spmd.py`):
 
 - **points are split into contiguous ranges** (one per device) chosen so
   each range owns a near-equal number of observations. Because the
   native row layout is point-sorted, each device's rows are a contiguous
   block and every point's rows live on exactly one device — the
   point-direction segment reduction (and back-substitution, and the
-  in-kernel Hpp_inv fold) is **exactly device-local**, no halo exchange.
+  Hpp_inv solve) is **exactly device-local**, no halo exchange.
 - **cameras are replicated**; the camera-direction reductions produce
   per-device partials that `psum` over the mesh axis
-  (`ops/spmdctx.py`) — the all-reduce rides ICI, exactly SURVEY.md
-  §2.3/§6's prescription for the BA "sequence axis".
+  (`ops/spmdctx.py`) — SURVEY.md §2.3/§6's prescription for the BA
+  "sequence axis".
 - each device's shard is padded independently to a **common static row
-  count M** (multiple of 128 — the Pallas layout contract) and a common
-  local point count PL, so one compiled program serves all devices.
+  count M** (a multiple of 128) and a common local point count PL, so
+  one compiled program serves all devices.
 
 Each shard is literally a local :class:`BAProblem` (built by
 `BAProblem.from_arrays`, which re-derives the local sorted-layout
@@ -105,8 +104,8 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def shard_problem_kminor(problem: BAProblem, ndev: int,
-                         mesh: Mesh | None = None) -> SpmdProblem:
+def shard_problem_spmd(problem: BAProblem, ndev: int,
+                       mesh: Mesh | None = None) -> SpmdProblem:
     """Split a (host or device) problem into ``ndev`` point-aligned shards.
 
     Rows 0..nobs-1 of the native layout are point-sorted
@@ -151,7 +150,7 @@ def shard_problem_kminor(problem: BAProblem, ndev: int,
             name=f"{problem.name}/shard{d}")
         # Common static shapes: points zero-padded to PL (keeps norms
         # exact: padded dp stays 0), starts padded with M (empty
-        # segments — the kernels' nchunks=0 path).
+        # segments).
         npl = lp.npnts
         pts = np.zeros((PL, 3), dtype)
         pts[:npl] = np.asarray(lp.points)

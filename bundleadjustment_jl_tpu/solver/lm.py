@@ -1,6 +1,6 @@
 """Levenberg-Marquardt on the Schur-reduced camera system.
 
-TPU-native re-architecture of the reference solver
+Re-architecture of the reference solver
 (`/root/reference/src/lm.jl:15-418`, ``Levenberg_Marquardt``). The outer LM
 logic keeps the reference's *known-good hyperparameters* (SURVEY.md §8):
 
@@ -188,7 +188,8 @@ def _compute_step(problem: BAProblem, blocks, lam, pcg_rtol,
         M_inv = block_jacobi_inverse(sys.Hcc_l)
         res = power_series(
             lambda v: schur_matvec(sys, v), sys.b,
-            lambda v: jnp.einsum("cab,cb->ca", sys.Hcc_l, v),
+            lambda v: jnp.einsum("cab,cb->ca", sys.Hcc_l, v,
+                                 precision=jax.lax.Precision.HIGHEST),
             lambda v: block_jacobi_apply(M_inv, v),
             rtol=pcg_rtol, max_terms=pcg_max_iters)
         dc, cg_iters = res.x, res.iters
@@ -199,9 +200,8 @@ def _compute_step(problem: BAProblem, blocks, lam, pcg_rtol,
         dp = back_substitute(sys, dc)
         cg_iters = jnp.asarray(0, jnp.int32)
     else:
-        from bundleadjustment_jl_tpu.ops.schur import reduce_and_diag
-        sys, Sd = reduce_and_diag(problem, blocks, lam)
-        M_inv = block_jacobi_inverse(Sd)
+        sys = reduce_system(problem, blocks, lam)
+        M_inv = block_jacobi_inverse(schur_diag_blocks(sys))
         res = pcg(lambda v: schur_matvec(sys, v), sys.b,
                   lambda v: block_jacobi_apply(M_inv, v),
                   rtol=pcg_rtol, max_iters=pcg_max_iters, x0=dc0)

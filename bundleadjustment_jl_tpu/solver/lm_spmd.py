@@ -1,13 +1,13 @@
-"""Multi-chip LM with the fused Pallas kernels: one `shard_map` solve.
+"""Multi-device LM with explicit collectives: one `shard_map` solve.
 
-`solver/lm_jit.py` is the single-chip flagship; `parallel/mesh.py` is the
+`solver/lm_jit.py` is the single-device driver; `parallel/mesh.py` is the
 GSPMD scale-out path (XLA partitions the scatter/gather formulation).
 This driver combines them: the WHOLE jitted LM loop (same `_lm_*_impl`
 body — lambda schedule, acceptance, stopping tests) runs inside ONE
-`shard_map` over a 1-D device mesh, so every device executes the fused
-kernels (`ops/pallas_linearize.py`, `ops/pallas_schur.py`) on its own
-point-aligned shard (`parallel/spmd.py`) while the camera-space
-reductions `psum` over the mesh axis (`ops/spmdctx.py`).
+`shard_map` over a 1-D device mesh, so every device runs the XLA
+formulation on its own point-aligned shard (`parallel/spmd.py`) while
+the camera-space reductions `psum` over the mesh axis
+(`ops/spmdctx.py`).
 
 What is local vs replicated:
 
@@ -20,23 +20,18 @@ What is local vs replicated:
 Collective footprint per LM iteration: one (ncams, 90) psum at
 assembly, one (ncams, 9) psum per CG matvec, one (ncams, 81) psum for
 the preconditioner diagonal, plus O(1) scalar psums — all camera-space,
-riding ICI (SURVEY.md §2.3: `reduce_scatter`/`all_reduce` over the
+riding the interconnect (SURVEY.md §2.3: `reduce_scatter`/`all_reduce` over the
 camera axis is the prescribed collective layout; here sum-replicate,
 since PCG needs the full reduced system on every device).
 """
 
 from __future__ import annotations
 
-import inspect
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-
-shard_map = getattr(jax, "shard_map", None)
-if shard_map is None:                                  # older JAX
-    from jax.experimental.shard_map import shard_map
-
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from bundleadjustment_jl_tpu.models.problem import BAProblem
@@ -46,48 +41,21 @@ from bundleadjustment_jl_tpu.parallel.spmd import (
     SPMD_AXIS, ShardStack, SpmdProblem)
 from bundleadjustment_jl_tpu.solver.lm_jit import (
     LMJitResult, MAX_ITER, MAX_TIME, RUNNING, STATUS_NAMES, _lm_init_impl,
-    _lm_run_impl, _mode_ctx, _resolve_hp)
-
-
-def _spmd_pallas_mode(facto_dtype) -> bool:
-    """Resolved Pallas mode for the spmd drivers.  f16 facto now rides
-    the fused kernels as u16 bit patterns (`pallas_schur._f16_decode`),
-    so no downgrade is needed; the hook stays as the single place a
-    facto-dtype-dependent routing decision would live (advisor, round
-    4)."""
-    del facto_dtype
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    return pallas_schur.PALLAS_MODE
+    _lm_run_impl, _resolve_hp)
 
 
 _CACHE: dict = {}
 
 
-def _check_kw():
-    sig = inspect.signature(shard_map).parameters
-    if "check_vma" in sig:
-        return {"check_vma": False}
-    return {"check_rep": False}
-
-
 def _local_solve(arrs: ShardStack, hp, lam0, *, statics, has_lam0):
     """Per-device body: rebuild the local BAProblem and run the shared
     LM implementation; spmdctx hooks supply the cross-device sums."""
-    M = arrs.cam_idx.shape[1]
     PL = arrs.points.shape[1]
-    lp = BAProblem(
-        cams=arrs.cams, points=arrs.points.reshape(PL, 3),
-        cam_idx=arrs.cam_idx.reshape(M), pnt_idx=arrs.pnt_idx.reshape(M),
-        pt2d=arrs.pt2d.reshape(M, 2), w=arrs.w.reshape(M),
-        nobs=M, name="spmd-shard",
-        pnt_starts=arrs.pnt_starts.reshape(-1),
-        cam_perm=arrs.cam_perm.reshape(M),
-        cam_starts=arrs.cam_starts.reshape(-1))
-    with _mode_ctx(statics):
-        state = _lm_init_impl(lp, lp.cams, lp.points, hp, **statics)
-        if has_lam0:
-            state = dict(state, lam=lam0.astype(state["lam"].dtype))
-        st = _lm_run_impl(lp, state, hp, **statics)
+    lp = _local_problem(arrs)
+    state = _lm_init_impl(lp, lp.cams, lp.points, hp, **statics)
+    if has_lam0:
+        state = dict(state, lam=lam0.astype(state["lam"].dtype))
+    st = _lm_run_impl(lp, state, hp, **statics)
     return dict(
         cams=st["cams"].reshape(-1, 9),
         points=st["points"].reshape(1, PL, 3),
@@ -97,23 +65,16 @@ def _local_solve(arrs: ShardStack, hp, lam0, *, statics, has_lam0):
         hist_lam=st["hist_lam"], hist_cg=st["hist_cg"])
 
 
-def _state_specs(cam_scatter: bool, pallas: bool = True):
+def _state_specs(facto_dtype):
     """PartitionSpec tree for the solver-state dict crossing the
     shard_map boundary (chunked driver): point-space leaves ride the
-    mesh axis on dim 0, everything else is replicated.  In camera-
-    scatter mode the assembly never builds ``W_cam_t`` (None leaf);
-    with the Pallas kernels off the blocks carry flat ``W_f`` instead
-    of the k-minor operands."""
+    mesh axis on dim 0, everything else is replicated.  f16 W storage
+    carries its range scale (a replicated scalar)."""
     obs, rep = P(SPMD_AXIS), P()
-    if pallas:
-        blocks = GNBlocks(g_c_f=rep, g_p_f=obs, Hcc_f=rep, Hpp_f=obs,
-                          W_f=None, obj=rep, r_f=None, Jc_f=None,
-                          Jp_f=None, W_t=obs,
-                          W_cam_t=None if cam_scatter else obs)
-    else:
-        blocks = GNBlocks(g_c_f=rep, g_p_f=obs, Hcc_f=rep, Hpp_f=obs,
-                          W_f=obs, obj=rep, r_f=None, Jc_f=None,
-                          Jp_f=None, W_t=None, W_cam_t=None)
+    w_scale = rep if facto_dtype == "float16" else None
+    blocks = GNBlocks(g_c_f=rep, g_p_f=obs, Hcc_f=rep, Hpp_f=obs,
+                      W_f=obs, obj=rep, r_f=None, Jc_f=None,
+                      Jp_f=None, w_scale=w_scale)
     return dict(cams=rep, points=obs, blocks=blocks, obj=rep, gnorm=rep,
                 lam=rep, it=rep, it_max=rep, gtol=rep, nrejects=rep,
                 naccepts=rep, dc=rep, nu=rep, status=rep,
@@ -142,44 +103,26 @@ def _get_chunked_fns(mesh, statics, has_lam0):
         return fns
     obs, rep = P(SPMD_AXIS), P()
     in_arr_specs = ShardStack(rep, *([obs] * (len(ShardStack._fields) - 1)))
-    st_specs = _state_specs(statics.get("cam_scatter", False),
-                            statics.get("pallas_mode", True))
+    st_specs = _state_specs(statics["facto_dtype"])
 
     def init_body(arrs, hp, lam0):
         lp = _local_problem(arrs)
-        with _mode_ctx(statics):
-            state = _lm_init_impl(lp, lp.cams, lp.points, hp, **statics)
+        state = _lm_init_impl(lp, lp.cams, lp.points, hp, **statics)
         if has_lam0:
             state = dict(state, lam=lam0.astype(state["lam"].dtype))
         return state
 
     def seg_body(arrs, state, hp):
-        lp = _local_problem(arrs)
-        with _mode_ctx(statics):
-            return _lm_run_impl(lp, state, hp, **statics)
+        return _lm_run_impl(_local_problem(arrs), state, hp, **statics)
 
     init_fn = jax.jit(shard_map(
         init_body, mesh=mesh, in_specs=(in_arr_specs, rep, rep),
-        out_specs=st_specs, **_check_kw()))
+        out_specs=st_specs, check_vma=False))
     seg_fn = jax.jit(shard_map(
         seg_body, mesh=mesh, in_specs=(in_arr_specs, st_specs, rep),
-        out_specs=st_specs, **_check_kw()))
+        out_specs=st_specs, check_vma=False))
     _CACHE[key] = (init_fn, seg_fn)
     return init_fn, seg_fn
-
-
-def _check_spmd_dtype(dtype, pallas: bool) -> None:
-    """With the Pallas kernels on, f64 is excluded (the fused kminor
-    kernels accumulate in f32; `pallas_schur.available`). With Pallas
-    OFF the local solve runs the XLA scatter/sorted-segsum path — its
-    camera-space reductions carry spmdctx psum hooks (`ops/normal.py`,
-    `ops/schur.py`), so any dtype works."""
-    if pallas and jnp.dtype(dtype) == jnp.float64:
-        raise ValueError(
-            "the fused kminor kernels accumulate in f32 and exclude "
-            "float64 — solve in f32/bf16 (CLI: --dtype f32), or disable "
-            "the Pallas kernels (pallas_schur.set_mode(False)) to run "
-            "the XLA path under the same spmd layout")
 
 
 def _get_fn(mesh, statics, has_lam0):
@@ -197,9 +140,26 @@ def _get_fn(mesh, statics, has_lam0):
     body = partial(_local_solve, statics=statics, has_lam0=has_lam0)
     fn = jax.jit(shard_map(
         body, mesh=mesh, in_specs=(in_arr_specs, rep, rep),
-        out_specs=out_specs, **_check_kw()))
+        out_specs=out_specs, check_vma=False))
     _CACHE[key] = fn
     return fn
+
+
+def _statics(max_iters, pcg_max_iters, linesearch, ls_max, lam0_mode,
+             pcg_rtol, facto_dtype, pcg_warm) -> dict:
+    """The static (jit-key) options of the shared LM body."""
+    from bundleadjustment_jl_tpu.ops import gatherfree, segsum
+    return dict(max_iters=max_iters, pcg_max_iters=pcg_max_iters,
+                use_dense=False, use_cgls=False, use_power=False,
+                linesearch=linesearch, ls_max=ls_max,
+                lam0_mode=lam0_mode, use_forcing=pcg_rtol is None,
+                facto_dtype=(None if facto_dtype is None
+                             else jnp.dtype(facto_dtype).name),
+                pcg_warm=pcg_warm, gather_mode=gatherfree.MODE,
+                sorted_mode=segsum.SORTED_MODE,
+                # shard-local rows inside the shard_map: the streamed
+                # forms scan each device's own rows
+                obs_sharded=False)
 
 
 def levenberg_marquardt_spmd(
@@ -215,42 +175,22 @@ def levenberg_marquardt_spmd(
     facto_dtype=None, pcg_warm: bool = False,
 ) -> LMJitResult:
     """LM over a device mesh (one shard_map; point-aligned
-    :class:`SpmdProblem` from `shard_problem_kminor`). Same options as
+    :class:`SpmdProblem` from `shard_problem_spmd`). Same options as
     :func:`levenberg_marquardt_jit` (PCG solver only — it is the scale
-    configuration). With `pallas_schur.PALLAS_MODE` on, every device
-    runs the fused kminor kernels on its shard; with it off the local
-    solve runs the XLA scatter/sorted-segsum path under the SAME
-    sharding/collective layout (its camera-space reductions carry
-    spmdctx psum hooks) — the configuration for CPU-mesh validation at
-    scale and for f64."""
-    from bundleadjustment_jl_tpu.ops import gatherfree, pallas_schur, segsum
+    configuration). Every device runs the XLA formulation on its shard;
+    the camera-space reductions carry spmdctx psum hooks. Any working
+    dtype, f64 included."""
     ndev_mesh = int(mesh.devices.size)
     if sp.ndev != ndev_mesh:
         raise ValueError(f"SpmdProblem has {sp.ndev} shards but the mesh "
                          f"has {ndev_mesh} devices — rebuild with "
-                         f"shard_problem_kminor(problem, {ndev_mesh})")
+                         f"shard_problem_spmd(problem, {ndev_mesh})")
     dtype = sp.arrays.cams.dtype
-    _check_spmd_dtype(dtype, pallas_schur.PALLAS_MODE)
     hp = _resolve_hp(dtype, atol, rtol, restol, satol, srtol, oatol,
                      ortol, nu_d, nu_m, accept_ratio, good_ratio, lam_min,
                      pcg_rtol, lam_strategy)
-    statics = dict(max_iters=max_iters, pcg_max_iters=pcg_max_iters,
-                   use_dense=False, use_cgls=False, use_power=False,
-                   linesearch=linesearch, ls_max=ls_max,
-                   lam0_mode=lam0_mode, use_forcing=pcg_rtol is None,
-                   facto_dtype=(None if facto_dtype is None
-                                else jnp.dtype(facto_dtype).name),
-                   pcg_warm=pcg_warm,
-                   gather_mode=gatherfree.MODE,
-                   sorted_mode=segsum.SORTED_MODE,
-                   pallas_mode=_spmd_pallas_mode(facto_dtype),
-                   # resolved for THIS problem: drives the chunked
-                   # driver's W_cam_t spec and keys the jit cache
-                   cam_scatter=(pallas_schur.CAM_SCATTER
-                                and sp.ncams
-                                <= pallas_schur.CAM_SCATTER_MAX_CAMS),
-                   fac=(pallas_schur.FACTOR, pallas_schur.FAC_CAM_L,
-                        pallas_schur.FAC_PNT_L))
+    statics = _statics(max_iters, pcg_max_iters, linesearch, ls_max,
+                       lam0_mode, pcg_rtol, facto_dtype, pcg_warm)
     has_lam0 = lam0 is not None
     lam0_val = jnp.asarray(0.0 if lam0 is None else lam0, dtype)
     fn = _get_fn(mesh, statics, has_lam0)
@@ -289,39 +229,22 @@ def levenberg_marquardt_spmd_chunked(
     linesearch: bool = False, ls_max: int = 4,
     facto_dtype=None, pcg_warm: bool = False,
 ) -> LMJitResult:
-    """Chunked multi-chip fused-kernel LM: the shard_map segment kernel
-    runs ``chunk_iters`` iterations; the host checks wall clock, writes
+    """Chunked multi-device LM: the shard_map segment kernel runs
+    ``chunk_iters`` iterations; the host checks wall clock, writes
     checkpoints (cams + GLOBAL points, re-split on resume) and invokes
     ``callback`` between segments — `levenberg_marquardt_jit_chunked`'s
     capabilities (max_time, checkpoint/resume) for the spmd path."""
     import time as _time
 
-    from bundleadjustment_jl_tpu.ops import gatherfree, pallas_schur, segsum
     if sp.ndev != int(mesh.devices.size):
         raise ValueError(f"SpmdProblem has {sp.ndev} shards, mesh has "
                          f"{int(mesh.devices.size)} devices")
     dtype = sp.arrays.cams.dtype
-    _check_spmd_dtype(dtype, pallas_schur.PALLAS_MODE)
     hp = _resolve_hp(dtype, atol, rtol, restol, satol, srtol, oatol,
                      ortol, nu_d, nu_m, accept_ratio, good_ratio, lam_min,
                      pcg_rtol, lam_strategy)
-    statics = dict(max_iters=max_iters, pcg_max_iters=pcg_max_iters,
-                   use_dense=False, use_cgls=False, use_power=False,
-                   linesearch=linesearch, ls_max=ls_max,
-                   lam0_mode=lam0_mode, use_forcing=pcg_rtol is None,
-                   facto_dtype=(None if facto_dtype is None
-                                else jnp.dtype(facto_dtype).name),
-                   pcg_warm=pcg_warm,
-                   gather_mode=gatherfree.MODE,
-                   sorted_mode=segsum.SORTED_MODE,
-                   pallas_mode=_spmd_pallas_mode(facto_dtype),
-                   # resolved for THIS problem: drives the chunked
-                   # driver's W_cam_t spec and keys the jit cache
-                   cam_scatter=(pallas_schur.CAM_SCATTER
-                                and sp.ncams
-                                <= pallas_schur.CAM_SCATTER_MAX_CAMS),
-                   fac=(pallas_schur.FACTOR, pallas_schur.FAC_CAM_L,
-                        pallas_schur.FAC_PNT_L))
+    statics = _statics(max_iters, pcg_max_iters, linesearch, ls_max,
+                       lam0_mode, pcg_rtol, facto_dtype, pcg_warm)
     arrs = sp.arrays
 
     ckpt_mgr = None

@@ -2,8 +2,8 @@
 
 The reference profiles with ad-hoc ``time()`` + ``@info`` pairs around the
 factorization (`/root/reference/src/lm.jl:124-126,160-162,182-185`) and
-``@btime`` micro-benchmarks (`src/CUTEst_compare.jl:17-23`). TPU-native
-equivalents:
+``@btime`` micro-benchmarks (`src/CUTEst_compare.jl:17-23`).
+Equivalents here:
 
 - :class:`PhaseTimers` — named accumulating wall timers that force device
   completion (`block_until_ready`) so phases are attributed correctly

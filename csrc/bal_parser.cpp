@@ -1,6 +1,6 @@
 // Fast BAL (Bundle Adjustment in the Large) file parser.
 //
-// Native-runtime component of the TPU bundle-adjustment framework: the
+// Native-runtime component of the bundle-adjustment framework: the
 // reference streams .txt.bz2 through Julia's CodecBzip2 wrapper over libbz2
 // and parses line-by-line (/root/reference/src/ReadFiles.jl:9-53); at
 // Venice/Final scale (9M observation lines) that parse dominates startup.

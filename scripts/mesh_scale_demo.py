@@ -5,7 +5,9 @@ Usage: python scripts/mesh_scale_demo.py [preset] [ndev] [max_iters]
           final   (13682 cams, 4,456,117 pts, ~28M obs — the largest BAL
                    problem; the reference never attempted it)
 
-Runs on N virtual CPU devices here; identical program on a real slice.
+Runs on N virtual CPU devices; the same program runs on N GPUs of one
+host when the script is given the GPU platform (``--gpu`` as the fourth
+argument).
 """
 
 import os
@@ -15,6 +17,7 @@ import time
 preset = sys.argv[1] if len(sys.argv) > 1 else "venice"
 ndev = int(sys.argv[2]) if len(sys.argv) > 2 else 4
 max_iters = int(sys.argv[3]) if len(sys.argv) > 3 else 3
+on_gpu = len(sys.argv) > 4 and sys.argv[4] == "--gpu"
 
 SIZES = {
     "venice": (1350, 894716, 5),
@@ -23,23 +26,21 @@ SIZES = {
 ncams, npnts, opp = SIZES[preset]
 
 flags = os.environ.get("XLA_FLAGS", "")
-if "host_platform_device_count" not in flags:
+if not on_gpu and "host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + f" --xla_force_host_platform_device_count={ndev}").strip()
 
 import jax  # noqa: E402
 
-# Persistent XLA compile cache: remote-TPU compiles run minutes per shape;
-# cached executables load in seconds (safe no-op on CPU).
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-jax.config.update("jax_platforms", "cpu")
+if not on_gpu:
+    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from bundleadjustment_jl_tpu.utils.cache import (  # noqa: E402
+    configure_compile_cache)
 
 from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal  # noqa: E402
 from bundleadjustment_jl_tpu.parallel.mesh import (  # noqa: E402
@@ -49,6 +50,7 @@ from bundleadjustment_jl_tpu.solver.lm_jit import (  # noqa: E402
 
 
 def main():
+    configure_compile_cache()
     print(f"preset={preset} devices={len(jax.devices())}", flush=True)
     t0 = time.perf_counter()
     problem, _ = synthetic_bal(
@@ -64,6 +66,7 @@ def main():
         sharded, max_iters=max_iters, pcg_max_iters=30,
         lam0_mode="diag", satol=0.0, srtol=0.0,
         atol=0.0, rtol=1e-5, oatol=0.0, ortol=1e-4)
+    jax.block_until_ready(res)
     obj = float(res.objective)
     dt = time.perf_counter() - t0
     nequ = problem.nequ

@@ -1,29 +1,23 @@
-"""Multi-chip validation at REAL BAL shapes on a virtual CPU mesh.
+"""Multi-device validation at REAL BAL shapes on a virtual CPU mesh.
 
-VERDICT r3 missing #2 / weak #7: every multi-device proof so far ran at
-toy shapes (ncams <= 11). This script runs the production multi-device
-paths at Venice-1778 (4.97M obs) and Final-13682 (31.2M obs) shapes on
-N virtual CPU devices and checks PARITY against a single-device solve
-of the identical problem:
+Runs the multi-device paths at Venice-1778 (4.97M obs) and Final-13682
+(31.2M obs) shapes on N virtual CPU devices and checks PARITY against a
+single-device solve of the identical problem (`chip_smoke.py --four`
+runs the Venice-1778 comparison on four GPUs):
 
   1. single-device `levenberg_marquardt_jit` (XLA path) — ground truth;
   2. GSPMD: the same jit solve on `parallel/mesh.py` shardings (XLA
      partitions the scatter/gather formulation automatically);
   3. spmd: `solver/lm_spmd.py` — the whole LM loop in ONE shard_map
      over point-aligned shards (`parallel/spmd.py`) with explicit
-     camera-space psums. Pallas OFF here: the XLA local path runs under
-     the exact same sharding/collective layout (the psum hooks in
-     ops/normal.py + ops/schur.py), so what is validated is the
-     sharding and collective placement at scale, not Mosaic codegen
-     (that is single-chip-proven on the real TPU, logs/r4/).
+     camera-space psums (the hooks in ops/normal.py + ops/schur.py).
 
 Parity bar: same iteration count, same status, objective within f32
 reassociation tolerance — the spmd drivers run the same traced scalar
 control flow, so trajectories must match decision for decision.
 
 Usage: python scripts/multichip_scale.py {venice1778|final13682} [ndev] [iters]
-Writes one JSON line per configuration; appends to logs/r4/multichip_scale.log
-via the shell (see scripts/grand_run*.sh usage).
+Writes one JSON line per configuration.
 """
 
 import json
@@ -44,7 +38,6 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -52,30 +45,31 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from bundleadjustment_jl_tpu.parallel.mesh import (  # noqa: E402
     make_mesh, shard_problem)
 from bundleadjustment_jl_tpu.parallel.spmd import (  # noqa: E402
-    shard_problem_kminor)
+    shard_problem_spmd)
 from bundleadjustment_jl_tpu.solver.lm_jit import (  # noqa: E402
     STATUS_NAMES, levenberg_marquardt_jit)
 from bundleadjustment_jl_tpu.solver.lm_spmd import (  # noqa: E402
     levenberg_marquardt_spmd)
 
 SIZES = {
-    # (family, ncams, npnts, obs_per_pnt) — match scripts/tpu_capacity.py
-    # RUNS so the npz problem cache is shared with the TPU runs.
-    "venice1350": ("Venice", 1350, 894716, 5),
-    "venice1778": ("Venice", 1778, 993923, 5),
-    "final13682": ("Final", 13682, 4456117, 7),
+    # (ncams, npnts, obs_per_pnt)
+    "venice1350": (1350, 894716, 5),
+    "venice1778": (1778, 993923, 5),
+    "final13682": (13682, 4456117, 7),
 }
 
 
 def main():
-    family, ncams, npnts, opp = SIZES[preset]
+    ncams, npnts, opp = SIZES[preset]
     print(f"preset={preset} ndev={ndev} devices={len(jax.devices())} "
           f"iters={iters}", flush=True)
     assert len(jax.devices()) >= ndev
 
-    from scripts.tpu_capacity import _cached_problem
+    from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal
     t0 = time.perf_counter()
-    problem = _cached_problem(family, ncams, npnts, opp)
+    problem, _ = synthetic_bal(ncams=ncams, npnts=npnts, obs_per_pnt=opp,
+                               noise_px=1.0, perturb=2e-2, seed=1,
+                               dtype=np.float32, pad_obs_to=8192)
     print(f"problem: nobs={problem.nobs} nvar={problem.nvar} "
           f"({time.perf_counter() - t0:.0f}s)", flush=True)
 
@@ -109,11 +103,10 @@ def main():
     record("gspmd", res2, time.perf_counter() - t0)
     del sharded
 
-    # 3. explicit-collective spmd driver (XLA local path; Pallas
-    #    codegen is single-chip-proven separately on the real TPU)
+    # 3. explicit-collective spmd driver
     t0 = time.perf_counter()
-    sp = shard_problem_kminor(problem, ndev, mesh=mesh)
-    print(f"sharded kminor: M={sp.arrays.cam_idx.shape[1]} "
+    sp = shard_problem_spmd(problem, ndev, mesh=mesh)
+    print(f"sharded point ranges: M={sp.arrays.cam_idx.shape[1]} "
           f"PL={sp.arrays.points.shape[1]} "
           f"({time.perf_counter() - t0:.0f}s)", flush=True)
     t0 = time.perf_counter()

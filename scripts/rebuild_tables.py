@@ -1,5 +1,5 @@
 """Regenerate benchmark_results tables + Dolan-More profiles from
-stats.jsonl (after out-of-band appends like scripts/venice_matrix.py).
+stats.jsonl (after out-of-band appends to it).
 
 The reference regenerates its LaTeX/Markdown tables and profile PDFs from
 saved JLD2 stats the same way (`/root/reference/src/benchmark.jl:60-86`).

@@ -11,7 +11,7 @@ Compile time is reported separately from run time: each (solver, problem)
 is solved twice — the first call pays XLA compilation (`compile_s` =
 first - second), the second is the reported `elapsed_s` (the reference has
 no compile stage; comparing its wall time against a compile-polluted first
-run would flatter it).
+run would flatter it). Both clocks stop at `jax.block_until_ready`.
 
 Tier gating on very large problems (logged, never silent): the full
 16-config matrix runs where a solve is minutes at most; the biggest
@@ -35,12 +35,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
-
-# Persistent XLA compile cache: remote-TPU compiles run minutes per shape;
-# cached executables load in seconds (safe no-op on CPU).
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 def build_solvers(full_matrix: bool, dense_max_ncams: int = 512):
@@ -66,17 +60,16 @@ def build_solvers(full_matrix: bool, dense_max_ncams: int = 512):
         def solve(problem):
             if kind == "dense":
                 # capability gate on actual residency (ncams*npnts), not
-                # camera count alone: round 4's refresh hit compile-time
-                # OOMs at LadyBug-318+ (ncams under the old 512 gate)
+                # camera count alone
                 from bundleadjustment_jl_tpu.ops.schur import (
                     check_dense_feasible)
                 check_dense_feasible(problem.ncams, problem.npnts)
 
             def once():
                 t0 = time.perf_counter()
-                r = levenberg_marquardt_jit(problem, **kw)
-                obj = float(r.objective)     # device fetch = true barrier
-                return r, obj, time.perf_counter() - t0
+                r = jax.block_until_ready(
+                    levenberg_marquardt_jit(problem, **kw))
+                return r, float(r.objective), time.perf_counter() - t0
 
             r, obj, t_first = once()         # compile + run
             r, obj, t_second = once()        # run (cached executable)
@@ -94,8 +87,7 @@ def build_solvers(full_matrix: bool, dense_max_ncams: int = 512):
         return solve
 
     solvers = {}
-    # core = the pcg family only: one extra XLA program (the linesearch
-    # variant) per problem shape; remote compiles are minutes each.
+    # core = the pcg family only: one XLA program per problem shape.
     kinds = ("pcg", "dense", "cgls", "power") if full_matrix else ("pcg",)
     strategies = ("ref", "nielsen")
     for kind in kinds:
@@ -124,13 +116,15 @@ def main():
     ap.add_argument("--diffprec-max-nobs", type=int, default=600_000)
     ap.add_argument("--skip-existing", action="store_true",
                     help="resume: skip (problem, solver) pairs already in "
-                         "stats.jsonl (worker-crash exception rows retry)")
+                         "stats.jsonl")
     ap.add_argument("--skip-main", action="store_true",
                     help="skip the main campaign (diffprec only)")
     args = ap.parse_args()
 
     import jax.numpy as jnp
 
+    from bundleadjustment_jl_tpu.utils.cache import configure_compile_cache
+    configure_compile_cache()
     from bundleadjustment_jl_tpu.benchmark.problems import (
         bal_suite, synthetic_suite)
     from bundleadjustment_jl_tpu.benchmark.runner import (
@@ -143,20 +137,8 @@ def main():
     if dtype == jnp.float64:
         jax.config.update("jax_enable_x64", True)
 
-    # Fused Pallas + camera-scatter kernels: the production TPU
-    # configuration (bench.py's headline) — round 3's campaign rows
-    # predate it and understate the recorded solves 10-25x (VERDICT r3
-    # weak #5). Rows carry pallas/cam_scatter tags; resume keys include
-    # the mode so pre-cam-scatter history is kept, not overwritten.
-    use_pallas = (backend == "tpu"
-                  and os.environ.get("BENCH_PALLAS", "1") != "0")
-    use_cs = False
-    if use_pallas:
-        from bundleadjustment_jl_tpu.ops import pallas_schur
-        pallas_schur.set_mode(True)
-        use_cs = os.environ.get("BENCH_CAM_SCATTER", "1") != "0"
-        pallas_schur.CAM_SCATTER = use_cs
-    mode_tag = {"pallas": use_pallas, "cam_scatter": use_cs}
+    d = jax.devices()[0]
+    device_tag = {"platform": d.platform, "device_kind": d.device_kind}
 
     def suite(dt):
         if args.data_dir:
@@ -175,12 +157,8 @@ def main():
     done = set()
     if args.skip_existing and os.path.exists(stats_path):
         for r in load_stats(stats_path):
-            crash = "crashed or restarted" in r.get("error", "")
-            if not crash:
-                rows.append(r)
-                done.add((r["problem"], r["solver"],
-                          bool(r.get("pallas", False)),
-                          bool(r.get("cam_scatter", False))))
+            rows.append(r)
+            done.add((r["problem"], r["solver"]))
     if not args.skip_main:
         for name, problem in suite(dtype):
             if problem.nobs <= args.full_matrix_max_nobs:
@@ -191,14 +169,14 @@ def main():
                       f"({sorted(core)}; {sorted(set(full) - set(core))} "
                       f"gated)", flush=True)
             todo = {s: f for s, f in solvers.items()
-                    if (name, s, use_pallas, use_cs) not in done}
+                    if (name, s) not in done}
             if not todo:
                 print(f"[bmark] {name}: all rows present, skipping",
                       flush=True)
                 continue
             new = run_campaign(todo, [(name, problem)])
             for r in new:
-                r.update(mode_tag)
+                r.update(device_tag)
             rows += new
             save_stats(rows, stats_path)  # incremental
 
@@ -207,7 +185,7 @@ def main():
             "problem", "solver", "status", "objective", "rmse_px",
             "iterations", "elapsed_s", "compile_s", "neval_residual",
             "neval_jac", "dual_feas", "nvar", "nequ",
-            "pallas", "cam_scatter")) + "\n")
+            "platform", "device_kind")) + "\n")
     with open(os.path.join(args.out, "tables.tex"), "w") as f:
         f.write(latex_table(rows) + "\n")
     for cost in ("elapsed_s", "neval_residual", "neval_jac"):
@@ -225,8 +203,7 @@ def main():
         drows = []
         ddone = set()
         if args.skip_existing and os.path.exists(dpath):
-            drows = [r for r in load_stats(dpath)
-                     if "crashed or restarted" not in r.get("error", "")]
+            drows = load_stats(dpath)
             ddone = {r["problem"] for r in drows}
         opts = dict(lam0_mode="diag", satol=0.0, srtol=0.0, atol=0.0,
                     rtol=1e-5, oatol=0.0, ortol=1e-4)

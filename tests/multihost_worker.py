@@ -11,8 +11,8 @@ feeds only its addressable shards), runs a short fully-jitted LM solve, and
 prints the final objective — the parent asserts cross-process agreement and
 parity with a single-process solve. This exercises the mesh + collective
 path the CLI's ``--multihost`` flag enables (`cli.py`), over the same
-GSPMD program that runs on a real multi-host TPU slice (DCN in place of
-this test's local gRPC).
+GSPMD program that runs across the GPUs of several hosts (the network in
+place of this test's local gRPC).
 """
 
 import sys

@@ -123,8 +123,7 @@ def test_facto_solve_matches_full_precision():
     assert row["stage"] == "float32+bfloat16facto"
     assert row["status"] in ("first_order", "small_obj_change",
                              "small_residual", "small_step")
-    # tiny problems amplify the bf16 quadratic-model error; at benchmark
-    # scale the gap is <1% (benchmark_results/diffprec.jsonl)
+    # tiny problems amplify the bf16 quadratic-model error
     assert row["objective"] <= float(base.objective) * 1.10
     # storage halves
     assert row["facto_bytes"] * 2 == row["facto_bytes_full"]

@@ -54,22 +54,16 @@ def test_cli_mesh_flag(capsys):
 
 
 def test_cli_spmd_driver(capsys):
-    from bundleadjustment_jl_tpu.ops import pallas_schur
-    assert not pallas_schur.PALLAS_MODE
-    try:
-        rc = main(["synthetic:ncams=5,npnts=80,obs_per_pnt=3,seed=3",
-                   "--driver", "spmd", "--mesh", "4", "--max-iters", "20",
-                   "--dtype", "f32", "--json"])
-    finally:
-        pallas_schur.set_mode(False)
-        pallas_schur.INTERPRET = False
+    rc = main(["synthetic:ncams=5,npnts=80,obs_per_pnt=3,seed=3",
+               "--driver", "spmd", "--mesh", "4", "--max-iters", "20",
+               "--dtype", "f32", "--json"])
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc in (0, 1)
     assert stats["driver"] == "spmd"
     assert stats["status"] != "exception"
 
 
-@pytest.mark.skipif(os.environ.get("BA_TPU_SUBPROC_TESTS") == "0",
+@pytest.mark.skipif(os.environ.get("BA_SUBPROC_TESTS") == "0",
                     reason="subprocess test disabled via env")
 def test_cli_entrypoint_subprocess():
     proc = subprocess.run(

@@ -57,8 +57,7 @@ def test_jit_linesearch_variant():
 def test_jit_linesearch_serial_trials_match_vmapped(monkeypatch):
     """Large-problem linesearch path: trial objectives via lax.map must be
     bit-identical to the vmapped evaluation (the vmapped form materializes
-    an (S, nobs, 9) gather that OOMs HBM at Venice scale —
-    logs/grand_r3/venice1778_matrix.log)."""
+    an (S, nobs, 9) gather at full width)."""
     from bundleadjustment_jl_tpu.solver import lm_jit
 
     problem, _ = synthetic_bal(ncams=6, npnts=40, obs_per_pnt=3,

@@ -1,8 +1,8 @@
 """SORTED_MODE segment reductions on sharded and partitioned layouts.
 
 VERDICT r1 #7: `shard_problem`/`partition_problem` used to drop the
-sorted-layout metadata, making the scan-based reductions (and the planned
-Pallas tile kernels) unusable exactly where they matter. These tests pin
+sorted-layout metadata, making the scan-based reductions unusable exactly
+where they matter. These tests pin
 the metadata flow: SORTED_MODE solves must agree with scatter-mode solves
 on (a) an 8-way sharded problem and (b) a camera-partitioned problem
 (which needs the `pnt_perm` permutation — rows are no longer globally

@@ -1,9 +1,9 @@
-"""Fused-kernel multi-chip solve (`solver/lm_spmd.py`) on a virtual mesh.
+"""Multi-device shard_map solve (`solver/lm_spmd.py`) on a virtual mesh.
 
-The spmd driver runs the SAME `_lm_*_impl` body as the single-chip jit
+The spmd driver runs the SAME `_lm_*_impl` body as the single-device jit
 driver inside one shard_map, with `ops/spmdctx.py` psums at the
 camera-space reduction points — so a sharded solve must match the
-single-device Pallas solve step for step (identical lambda schedule and
+single-device solve step for step (identical lambda schedule and
 acceptance decisions; floating-point reassociation across shards is the
 only difference).
 """
@@ -14,8 +14,7 @@ import numpy as np
 import pytest
 
 from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal
-from bundleadjustment_jl_tpu.ops import pallas_schur
-from bundleadjustment_jl_tpu.parallel.spmd import shard_problem_kminor
+from bundleadjustment_jl_tpu.parallel.spmd import shard_problem_spmd
 from bundleadjustment_jl_tpu.solver.lm_jit import levenberg_marquardt_jit
 from bundleadjustment_jl_tpu.solver.lm_spmd import levenberg_marquardt_spmd
 
@@ -36,7 +35,7 @@ def _problem(seed=3):
 
 def test_shard_builder_roundtrip():
     prob = _problem()
-    sp = shard_problem_kminor(prob, 4)
+    sp = shard_problem_spmd(prob, 4)
     assert sp.ndev == 4
     assert int(sp.npnts_loc.sum()) == prob.npnts
     assert int(sp.nobs_loc.sum()) == prob.nobs
@@ -60,15 +59,9 @@ def test_spmd_solve_matches_single_device(ndev):
     opts = dict(max_iters=25, pcg_max_iters=60, lam0_mode="diag",
                 satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5,
                 oatol=0.0, ortol=1e-4)
-    old = (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET)
-    try:
-        pallas_schur.set_mode(True)
-        pallas_schur.INTERPRET = True
-        ref = levenberg_marquardt_jit(prob, **opts)
-        sp = shard_problem_kminor(prob, ndev, mesh=mesh)
-        got = levenberg_marquardt_spmd(sp, mesh, **opts)
-    finally:
-        pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET = old
+    ref = levenberg_marquardt_jit(prob, **opts)
+    sp = shard_problem_spmd(prob, ndev, mesh=mesh)
+    got = levenberg_marquardt_spmd(sp, mesh, **opts)
     assert int(got.iterations) == int(ref.iterations)
     assert int(got.status) == int(ref.status)
     robj = float(ref.objective)
@@ -88,15 +81,9 @@ def test_spmd_linesearch_and_facto():
                 satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5,
                 oatol=0.0, ortol=1e-4, linesearch=True,
                 facto_dtype=jnp.bfloat16)
-    old = (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET)
-    try:
-        pallas_schur.set_mode(True)
-        pallas_schur.INTERPRET = True
-        ref = levenberg_marquardt_jit(prob, **opts)
-        sp = shard_problem_kminor(prob, 4, mesh=mesh)
-        got = levenberg_marquardt_spmd(sp, mesh, **opts)
-    finally:
-        pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET = old
+    ref = levenberg_marquardt_jit(prob, **opts)
+    sp = shard_problem_spmd(prob, 4, mesh=mesh)
+    got = levenberg_marquardt_spmd(sp, mesh, **opts)
     robj = float(ref.objective)
     # bf16 W perturbs the Schur complement by O(eps(bf16)=2^-8) and the
     # spmd driver reassociates the psum'd reductions, so the two solves
@@ -108,19 +95,16 @@ def test_spmd_linesearch_and_facto():
 
 
 def test_spmd_xla_path_matches_single_device():
-    """With the Pallas kernels OFF the spmd driver runs the XLA
-    scatter/sorted-segsum local path under the same sharding layout —
-    the psum hooks in `ops/normal.py` / `ops/schur.py` must make it
-    match the single-device XLA solve decision for decision (this is
-    the configuration CPU-mesh validation at Venice/Final scale runs)."""
+    """The spmd driver's local XLA scatter path under the sharding layout
+    — the psum hooks in `ops/normal.py` / `ops/schur.py` must make it
+    match the single-device XLA solve decision for decision."""
     mesh = _mesh(4)
     prob = _problem()
-    assert not pallas_schur.PALLAS_MODE
     opts = dict(max_iters=25, pcg_max_iters=60, lam0_mode="diag",
                 satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5,
                 oatol=0.0, ortol=1e-4)
     ref = levenberg_marquardt_jit(prob, **opts)
-    sp = shard_problem_kminor(prob, 4, mesh=mesh)
+    sp = shard_problem_spmd(prob, 4, mesh=mesh)
     got = levenberg_marquardt_spmd(sp, mesh, **opts)
     assert int(got.iterations) == int(ref.iterations)
     assert int(got.status) == int(ref.status)
@@ -137,39 +121,33 @@ def test_spmd_facto_bf16_matches_f32():
     storage inside the f32 LM must converge to the same objective."""
     mesh = _mesh(4)
     prob = _problem(seed=3)
-    old = (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET)
-    try:
-        pallas_schur.set_mode(True)
-        pallas_schur.INTERPRET = True
-        sp = shard_problem_kminor(prob, 4, mesh=mesh)
-        opts = dict(max_iters=15, lam0_mode="diag")
-        rb = levenberg_marquardt_spmd(sp, mesh, facto_dtype=jnp.bfloat16,
-                                      **opts)
-        rf = levenberg_marquardt_spmd(sp, mesh, **opts)
-        fobj = float(rf.objective)
-        assert abs(float(rb.objective) - fobj) <= 1e-2 * max(1.0, fobj)
-    finally:
-        pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET = old
+    sp = shard_problem_spmd(prob, 4, mesh=mesh)
+    opts = dict(max_iters=15, lam0_mode="diag")
+    rb = levenberg_marquardt_spmd(sp, mesh, facto_dtype=jnp.bfloat16,
+                                  **opts)
+    rf = levenberg_marquardt_spmd(sp, mesh, **opts)
+    fobj = float(rf.objective)
+    assert abs(float(rb.objective) - fobj) <= 1e-2 * max(1.0, fobj)
 
 
-def test_spmd_rejects_float64():
-    """f64 would silently skip the psum-hooked fused assembly inside the
-    shard_map — both spmd drivers must refuse it up front."""
+def test_spmd_float64_matches_jit_float64():
+    """f64 runs under both spmd drivers (the reference's working type)
+    and matches the single-device f64 solve."""
     from bundleadjustment_jl_tpu.solver.lm_spmd import (
         levenberg_marquardt_spmd, levenberg_marquardt_spmd_chunked)
     mesh = _mesh(2)
     prob, _ = synthetic_bal(ncams=4, npnts=30, obs_per_pnt=3, seed=1,
-                            dtype=jnp.float64)
-    old = pallas_schur.PALLAS_MODE
-    try:
-        pallas_schur.set_mode(True)
-        sp = shard_problem_kminor(prob, 2, mesh=mesh)
-        with pytest.raises(ValueError, match="float64"):
-            levenberg_marquardt_spmd(sp, mesh, max_iters=2)
-        with pytest.raises(ValueError, match="float64"):
-            levenberg_marquardt_spmd_chunked(sp, mesh, max_iters=2)
-    finally:
-        pallas_schur.set_mode(old)
+                            dtype=jnp.float64, perturb=2e-2)
+    opts = dict(max_iters=20, lam0_mode="diag")
+    ref = levenberg_marquardt_jit(prob, **opts)
+    sp = shard_problem_spmd(prob, 2, mesh=mesh)
+    for got in (levenberg_marquardt_spmd(sp, mesh, **opts),
+                levenberg_marquardt_spmd_chunked(sp, mesh, chunk_iters=4,
+                                                 **opts)):
+        assert got.objective.dtype == jnp.float64
+        assert int(got.iterations) == int(ref.iterations)
+        robj = float(ref.objective)
+        assert abs(float(got.objective) - robj) <= 1e-9 * max(1.0, robj)
 
 
 def test_spmd_chunked_matches_and_resumes(tmp_path):
@@ -182,28 +160,22 @@ def test_spmd_chunked_matches_and_resumes(tmp_path):
     opts = dict(max_iters=20, pcg_max_iters=60, lam0_mode="diag",
                 satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5,
                 oatol=0.0, ortol=1e-4)
-    old = (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET)
-    try:
-        pallas_schur.set_mode(True)
-        pallas_schur.INTERPRET = True
-        sp = shard_problem_kminor(prob, 4, mesh=mesh)
-        ref = levenberg_marquardt_spmd(sp, mesh, **opts)
-        got = levenberg_marquardt_spmd_chunked(sp, mesh, chunk_iters=3,
-                                               **opts)
-        assert int(got.iterations) == int(ref.iterations)
-        robj = float(ref.objective)
-        assert abs(float(got.objective) - robj) <= 1e-5 * max(1.0, robj)
+    sp = shard_problem_spmd(prob, 4, mesh=mesh)
+    ref = levenberg_marquardt_spmd(sp, mesh, **opts)
+    got = levenberg_marquardt_spmd_chunked(sp, mesh, chunk_iters=3,
+                                           **opts)
+    assert int(got.iterations) == int(ref.iterations)
+    robj = float(ref.objective)
+    assert abs(float(got.objective) - robj) <= 1e-5 * max(1.0, robj)
 
-        # checkpoint at every chunk, stop early via max_iters, resume
-        ck = str(tmp_path / "ck")
-        part = levenberg_marquardt_spmd_chunked(
-            sp, mesh, chunk_iters=3, checkpoint_dir=ck,
-            **{**opts, "max_iters": 6})
-        assert int(part.iterations) == 6
-        resumed = levenberg_marquardt_spmd_chunked(
-            sp, mesh, chunk_iters=3, checkpoint_dir=ck, resume=True,
-            **opts)
-        assert int(resumed.iterations) >= 6
-        assert abs(float(resumed.objective) - robj) <= 1e-3 * max(1.0, robj)
-    finally:
-        pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET = old
+    # checkpoint at every chunk, stop early via max_iters, resume
+    ck = str(tmp_path / "ck")
+    part = levenberg_marquardt_spmd_chunked(
+        sp, mesh, chunk_iters=3, checkpoint_dir=ck,
+        **{**opts, "max_iters": 6})
+    assert int(part.iterations) == 6
+    resumed = levenberg_marquardt_spmd_chunked(
+        sp, mesh, chunk_iters=3, checkpoint_dir=ck, resume=True,
+        **opts)
+    assert int(resumed.iterations) >= 6
+    assert abs(float(resumed.objective) - robj) <= 1e-3 * max(1.0, robj)
